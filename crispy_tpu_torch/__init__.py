@@ -1,0 +1,16 @@
+"""crispy-tpu's PyTorch and CUDA port, for an NVIDIA H100.
+
+The JAX package ``crispy_tpu`` is the reference and stays as it is; this
+package runs the same pipelines in PyTorch, with the JAX package's Pallas
+kernels written again by hand as CUDA kernels for Hopper (``csrc/``, built
+at first use by ``_build.py``). It imports neither ``jax`` nor anything of
+``crispy_tpu``: what it shares with the JAX package it keeps as its own copy.
+
+  device   device resolution (CUDA unless told otherwise) and TF32 off
+  dsp/     the RNNoise pipeline, its kernels and the host resampler
+  engine/  file and array denoising
+  io/      the WAV codec
+  cli      ``python -m crispy_tpu_torch.cli denoise IN OUT`` and ``bench``
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,1 @@
+"""Engine layer of the port: batched file and array denoising."""

@@ -1,0 +1,165 @@
+"""WAV codec: RIFF chunk-walking reader and s16/f32 writer.
+
+The PyTorch port's own copy of the parts of ``crispy_tpu/io/wav.py`` that
+file denoising uses (``read_format``, ``read_wav``, ``write_wav``); the port
+imports nothing of the JAX package. The reader walks RIFF chunks tolerant of
+LIST/INFO chunks and truncated files (src-tauri/src/commands/recording.rs:
+384-460); the writer clamps and scales by 32767 like the reference's
+recording writer (src-tauri/src/recording.rs:108-112). All host-side NumPy.
+"""
+
+from __future__ import annotations
+
+import io
+import struct
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Optional, Tuple, Union
+
+import numpy as np
+
+PathLike = Union[str, Path]
+
+SAMPLE_RATE = 48000  # recording.rs:8
+
+
+@dataclass
+class WavFormat:
+    num_channels: int
+    sample_rate: int
+    bits_per_sample: int
+    audio_format: int  # 1 = PCM int, 3 = IEEE float
+    data_offset: int
+    data_size: int
+
+
+def _walk_chunks(f: io.BufferedIOBase) -> Optional[WavFormat]:
+    """Walk RIFF chunks looking for fmt + data (commands/recording.rs:406-440)."""
+    header = f.read(12)
+    if len(header) < 12 or header[0:4] != b"RIFF" or header[8:12] != b"WAVE":
+        return None
+    num_channels = sample_rate = bits = audio_format = 0
+    while True:
+        chunk_header = f.read(8)
+        if len(chunk_header) < 8:
+            return None
+        chunk_id = chunk_header[0:4]
+        (chunk_size,) = struct.unpack("<I", chunk_header[4:8])
+        # RIFF: chunks are word-aligned — an odd-sized chunk is followed by
+        # a pad byte NOT counted in chunk_size. (The reference's parser
+        # skips only chunk_size, recording.rs:437; spec-conformant WAVs
+        # with odd LIST/INFO chunks would misparse there — fixed here.)
+        pad = chunk_size & 1
+        if chunk_id == b"fmt ":
+            fmt_data = f.read(chunk_size + pad)
+            if len(fmt_data) < 16:
+                return None
+            audio_format, num_channels = struct.unpack("<HH", fmt_data[0:4])
+            (sample_rate,) = struct.unpack("<I", fmt_data[4:8])
+            (bits,) = struct.unpack("<H", fmt_data[14:16])
+        elif chunk_id == b"data":
+            if sample_rate == 0 or bits == 0 or num_channels == 0:
+                return None
+            return WavFormat(
+                num_channels=num_channels,
+                sample_rate=sample_rate,
+                bits_per_sample=bits,
+                audio_format=audio_format,
+                data_offset=f.tell(),
+                data_size=chunk_size,
+            )
+        else:
+            # Skip unknown chunk (LIST, INFO, ...) including its pad byte.
+            f.seek(chunk_size + pad, io.SEEK_CUR)
+
+
+def read_format(path: PathLike) -> Optional[WavFormat]:
+    try:
+        with open(path, "rb") as f:
+            return _walk_chunks(f)
+    except OSError:
+        return None
+
+
+def _decode(raw: bytes, fmt: WavFormat) -> np.ndarray:
+    """Decode raw PCM bytes → float32 array shaped (frames, channels) in [-1, 1]."""
+    width = max(fmt.bits_per_sample // 8, 1)
+    if len(raw) % width:  # truncated mid-sample: decode the complete ones
+        raw = raw[: len(raw) - (len(raw) % width)]
+    if fmt.audio_format == 3 and fmt.bits_per_sample == 32:
+        data = np.frombuffer(raw, dtype="<f4").astype(np.float32)
+    elif fmt.audio_format == 1 and fmt.bits_per_sample == 16:
+        data = np.frombuffer(raw, dtype="<i2").astype(np.float32) / 32768.0
+    elif fmt.audio_format == 1 and fmt.bits_per_sample == 32:
+        data = np.frombuffer(raw, dtype="<i4").astype(np.float32) / 2147483648.0
+    elif fmt.audio_format == 1 and fmt.bits_per_sample == 8:
+        data = (np.frombuffer(raw, dtype=np.uint8).astype(np.float32) - 128.0) / 128.0
+    else:
+        raise ValueError(
+            f"Unsupported WAV format: audio_format={fmt.audio_format}, "
+            f"bits={fmt.bits_per_sample}"
+        )
+    frames = len(data) // fmt.num_channels
+    return data[: frames * fmt.num_channels].reshape(frames, fmt.num_channels)
+
+
+def read_wav(path: PathLike) -> Tuple[np.ndarray, int]:
+    """Read a whole WAV → (float32 (frames, channels) in [-1,1], sample_rate)."""
+    fmt = read_format(path)
+    if fmt is None:
+        raise ValueError(f"Not a valid WAV file: {path}")
+    with open(path, "rb") as f:
+        f.seek(fmt.data_offset)
+        raw = f.read(fmt.data_size)
+    return _decode(raw, fmt), fmt.sample_rate
+
+
+def write_wav(
+    path: PathLike,
+    data: np.ndarray,
+    sample_rate: int = SAMPLE_RATE,
+    *,
+    dtype: str = "i16",
+) -> Path:
+    """Write float32 samples in [-1, 1] as PCM WAV.
+
+    ``data`` may be (frames,) mono or (frames, channels). i16 conversion uses
+    clamp + ×32767 to match the reference writer (recording.rs:108-112).
+    """
+    data = np.asarray(data)
+    if data.dtype != np.int16:
+        data = data.astype(np.float32)
+    if data.ndim == 1:
+        data = data[:, None]
+    frames, channels = data.shape
+    if dtype == "i16":
+        if data.dtype == np.int16:
+            pcm = data.astype("<i2")  # already-quantized PCM passthrough
+        else:
+            pcm = (np.clip(data, -1.0, 1.0) * 32767.0).astype("<i2")
+        bits, audio_format = 16, 1
+    elif dtype == "f32":
+        if data.dtype == np.int16:
+            data = data.astype(np.float32) / 32768.0
+        pcm = data.astype("<f4")
+        bits, audio_format = 32, 3
+    else:
+        raise ValueError(f"Unsupported dtype: {dtype}")
+    payload = pcm.tobytes()
+    byte_rate = sample_rate * channels * bits // 8
+    block_align = channels * bits // 8
+    with open(path, "wb") as f:
+        f.write(b"RIFF")
+        f.write(struct.pack("<I", 36 + len(payload)))
+        f.write(b"WAVE")
+        f.write(b"fmt ")
+        f.write(
+            struct.pack(
+                "<IHHIIHH", 16, audio_format, channels, sample_rate, byte_rate,
+                block_align, bits,
+            )
+        )
+        f.write(b"data")
+        f.write(struct.pack("<I", len(payload)))
+        f.write(payload)
+    return Path(path)

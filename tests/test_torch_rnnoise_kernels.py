@@ -1,0 +1,248 @@
+"""The port's kernel modules (crispy_tpu_torch rnn_kernels / ops_kernels)
+held against the JAX package on the CPU, and their CUDA kernels held against
+their plain versions on the card.
+
+On the CPU the wrappers take their plain PyTorch versions; those are compared
+with the JAX functions on the same numpy inputs (the Pallas kernels in
+interpret mode, as the JAX package's own tests run them). The tests marked
+``gpu`` build the CUDA kernels and compare them with the plain versions on
+the card; here, without a card, they skip.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from crispy_tpu_torch.dsp.rnnoise import constants as TC
+from crispy_tpu_torch.dsp.rnnoise import ops_kernels as ok
+from crispy_tpu_torch.dsp.rnnoise import pipeline as tp
+from crispy_tpu_torch.dsp.rnnoise import rnn_kernels as rk
+from crispy_tpu_torch.dsp.rnnoise import weights as tw
+
+try:  # the reference; the card's machine has no JAX and runs only the gpu tests
+    import jax.numpy as jnp
+
+    from crispy_tpu.dsp.rnnoise import constants as JC
+    from crispy_tpu.dsp.rnnoise import jax_pipeline as jp
+    from crispy_tpu.dsp.rnnoise import pallas_ops as jops
+    from crispy_tpu.dsp.rnnoise import pallas_rnn as jrnn
+    from crispy_tpu.dsp.rnnoise.weights import deterministic_test_model
+except ImportError:
+    jp = None
+needs_jax = pytest.mark.skipif(jp is None, reason="the JAX reference is not installed")
+
+WIN = TC.WINDOW_SIZE
+
+
+@pytest.fixture(scope="module")
+def jparams():
+    return jp.make_params(deterministic_test_model())
+
+
+@pytest.fixture(scope="module")
+def tparams():
+    return tp.make_params(tw.deterministic_test_model(), "cpu")
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def nn_inputs(seed=11, S=3, F=9):
+    rng = np.random.default_rng(seed)
+    feats = rng.standard_normal((S, F, 42)).astype(np.float32)
+    sil = rng.random((S, F)) < 0.3
+    state = {
+        "gru_vad": rng.random((S, 24)).astype(np.float32) * 0.5,
+        "gru_noise": rng.random((S, 48)).astype(np.float32) * 0.5,
+        "gru_denoise": rng.random((S, 96)).astype(np.float32) * 0.5,
+        "lastg": rng.random((S, 22)).astype(np.float32),
+    }
+    return feats, sil, state
+
+
+def rd_inputs(seed=3, S=3, F=11):
+    rng = np.random.default_rng(seed)
+    packed = np.concatenate([
+        rng.integers(20, 380, (S, F, 14)).astype(np.float32),
+        rng.random((S, F, 14)).astype(np.float32),
+        (rng.random((S, F, 14)) > 0.3).astype(np.float32),
+        rng.random((S, F, 1)).astype(np.float32),
+        rng.integers(30, 384, (S, F, 1)).astype(np.float32),
+        rng.integers(60, 768, (S, F, 15)).astype(np.float32),
+        rng.random((S, F, 15)).astype(np.float32),
+    ], axis=-1)
+    lp0 = rng.integers(60, 768, S).astype(np.float32)
+    lg0 = rng.random(S).astype(np.float32)
+    return packed, lp0, lg0
+
+
+def gather_inputs(seed=5, S=3, F=6):
+    rng = np.random.default_rng(seed)
+    L = tp.HIST + 1 + F * 480
+    ext = rng.standard_normal((S, L)).astype(np.float32)
+    starts = (1 + np.arange(F)[None, :] * 480 + (tp.PBUF - WIN)
+              - rng.integers(60, 768, (S, F))).astype(np.int32)
+    starts[0, 0] = -7  # counts from the end, then clamped to L - 960
+    starts[0, 1] = -L - 30  # before the start even from the end: clamped to 0
+    starts[1, -1] = L - 100  # clamped to L - 960
+    starts[2, 2] = L + 5000  # far past the end
+    return ext, starts
+
+
+# ---------------------------------------------------------------------------
+# K1: the GRU network scan
+# ---------------------------------------------------------------------------
+
+class TestNnScan:
+    @needs_jax
+    @pytest.mark.parametrize("against", ["xla_scan", "pallas_interpret"])
+    def test_plain_matches_jax(self, jparams, tparams, against):
+        """nn_scan on CPU tensors (its plain version) == jax_pipeline._nn_scan
+        and nn_scan_pallas in interpret mode, with silence gating, lastg
+        smoothing and the state carry."""
+        feats, sil, state = nn_inputs()
+        jstate = {k: jnp.asarray(v) for k, v in state.items()}
+        if against == "xla_scan":
+            (a1, a2, a3), st_a = jp._nn_scan(jparams, jstate, jnp.asarray(feats),
+                                             jnp.asarray(sil))
+        else:
+            (a1, a2, a3), st_a = jrnn.nn_scan_pallas(jparams, jstate, jnp.asarray(feats),
+                                                     jnp.asarray(sil), interpret=True)
+        tstate = {k: t(v) for k, v in state.items()}
+        before = rk.nn_scan.launches
+        (b1, b2, b3), st_b = rk.nn_scan(tparams, tstate, t(feats), t(sil))
+        assert rk.nn_scan.launches == before  # CPU tensors never launch the kernel
+        for x, y in ((a1, b1), (a2, b2), (a3, b3)):
+            np.testing.assert_allclose(np.asarray(x), y.numpy(), atol=1e-6)
+        for k in st_a:
+            np.testing.assert_allclose(np.asarray(st_a[k]), st_b[k].numpy(), atol=1e-6)
+
+    @needs_jax
+    def test_tansig_matches_oracle_table(self, tparams):
+        """The table tansig is the oracle's tansig_approx, bit for bit,
+        including saturation and NaN."""
+        x = np.concatenate([np.linspace(-9, 9, 4001, dtype=np.float32),
+                            np.array([np.nan, np.inf, -np.inf], np.float32)])
+        got = rk._tansig(tparams["tansig_table"], t(x)).numpy()
+        np.testing.assert_array_equal(got, JC.tansig_approx(x))
+
+    @pytest.mark.gpu
+    def test_kernel_matches_plain_on_card(self, cuda, tparams):
+        feats, sil, state = nn_inputs(seed=12, S=5, F=40)
+        params = {k: v.to(cuda) for k, v in tparams.items()}
+        tstate = {k: t(v).to(cuda) for k, v in state.items()}
+        f, s = t(feats).to(cuda), t(sil).to(cuda)
+        before = rk.nn_scan.launches
+        a, st_a = rk.nn_scan(params, tstate, f, s)
+        assert rk.nn_scan.launches == before + 1
+        b, st_b = rk.nn_scan_reference(params, tstate, f, s)
+        for x, y in zip(a, b):
+            torch.testing.assert_close(x, y, atol=1e-5, rtol=0)
+        for k in st_a:
+            torch.testing.assert_close(st_a[k], st_b[k], atol=1e-5, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# K2: the remove_doubling continuation scan
+# ---------------------------------------------------------------------------
+
+class TestRdScan:
+    @needs_jax
+    def test_plain_matches_pallas_bit_exact(self):
+        """rd_scan on CPU tensors == rd_scan_pallas (interpret mode) bit for
+        bit: thresholds, candidate selection and the (period, gain) carry."""
+        packed, lp0, lg0 = rd_inputs()
+        want = jrnn.rd_scan_pallas(jnp.asarray(packed), jnp.asarray(lp0), jnp.asarray(lg0),
+                                   interpret=True)
+        got = rk.rd_scan(t(packed), t(lp0), t(lg0))
+        for w, g in zip(want, got):
+            np.testing.assert_array_equal(np.asarray(w), g.numpy())
+
+    @needs_jax
+    def test_continuation_thresholds_bit_exact(self):
+        """Inputs built to sit on the continuation branches (candidates one
+        and two half-periods from the previous period, gains at the
+        threshold boundaries) stay bit-exact too."""
+        rng = np.random.default_rng(7)
+        packed, lp0, lg0 = rd_inputs(seed=8, S=3, F=12)
+        pph = np.floor(lp0 * 0.5)
+        packed[:, 0, 0:14] = pph[:, None] + rng.integers(-2, 3, (3, 14))
+        packed[:, :, 14:28] = np.round(packed[:, :, 14:28] * 8) / 8  # many exact ties
+        packed[:, :, 42] = np.round(packed[:, :, 42] * 8) / 8
+        want = jrnn.rd_scan_pallas(jnp.asarray(packed), jnp.asarray(lp0), jnp.asarray(lg0),
+                                   interpret=True)
+        got = rk.rd_scan(t(packed), t(lp0), t(lg0))
+        for w, g in zip(want, got):
+            np.testing.assert_array_equal(np.asarray(w), g.numpy())
+
+    @pytest.mark.gpu
+    def test_kernel_matches_plain_on_card(self, cuda):
+        packed, lp0, lg0 = rd_inputs(seed=9, S=70, F=50)
+        args = [t(x).to(cuda) for x in (packed, lp0, lg0)]
+        before = rk.rd_scan.launches
+        got = rk.rd_scan(*args)
+        assert rk.rd_scan.launches == before + 1
+        want = rk.rd_scan_reference(*args)
+        for w, g in zip(want, got):
+            assert torch.equal(w, g)
+
+
+# ---------------------------------------------------------------------------
+# K3: the pitch-window gather, and the candidate gather
+# ---------------------------------------------------------------------------
+
+class TestGathers:
+    @needs_jax
+    def test_pitch_window_gather_matches_jax(self):
+        """Exact against pallas_ops.pitch_window_gather's dynamic_slice
+        branch, clamped starts included."""
+        ext, starts = gather_inputs()
+        want = jops.pitch_window_gather(jnp.asarray(ext), jnp.asarray(starts))
+        got = ok.pitch_window_gather(t(ext), t(starts))
+        np.testing.assert_array_equal(np.asarray(want), got.numpy())
+        np.testing.assert_array_equal(got[0, 0].numpy(), ext[0, -WIN:])
+        np.testing.assert_array_equal(got[0, 1].numpy(), ext[0, :WIN])
+        np.testing.assert_array_equal(got[1, -1].numpy(), ext[1, -WIN:])
+
+    @needs_jax
+    def test_rd_candidate_gather_matches_jax(self, tparams):
+        rng = np.random.default_rng(4)
+        S, F = 2, 7
+        corr = rng.standard_normal((S, F, 385)).astype(np.float32)
+        yyl = rng.random((S, F, 385)).astype(np.float32)
+        T0 = rng.integers(90, 384, (S, F)).astype(np.int32)
+        T0[0, :3] = [90, 383, 200]
+        want = jops.rd_candidate_gather(jnp.asarray(corr), jnp.asarray(yyl), jnp.asarray(T0))
+        got = ok.rd_candidate_gather(t(corr), t(yyl), t(T0), tparams["second_check"])
+        for w, g in zip(want, got):
+            np.testing.assert_array_equal(np.asarray(w), g.numpy())
+
+    @pytest.mark.gpu
+    def test_kernel_matches_plain_on_card(self, cuda):
+        ext, starts = gather_inputs(seed=6, S=4, F=30)
+        e, s = t(ext).to(cuda), t(starts).to(cuda)
+        before = ok.pitch_window_gather.launches
+        got = ok.pitch_window_gather(e, s)
+        assert ok.pitch_window_gather.launches == before + 1
+        assert torch.equal(got, ok.pitch_window_gather_reference(e, s))
+
+
+class TestWrappers:
+    def test_mixed_devices_raise(self):
+        ext, starts = gather_inputs()
+        with pytest.raises(ValueError):
+            ok.pitch_window_gather(t(ext), t(starts).to("meta"))
+
+    @pytest.mark.gpu
+    def test_wrapper_rejects_bad_dtype_on_card(self, cuda):
+        ext, starts = gather_inputs()
+        with pytest.raises(ValueError):
+            ok.pitch_window_gather(t(ext).to(cuda), t(starts).to(torch.int64).to(cuda))
