@@ -10,12 +10,18 @@ Phases, each printed on its own lines; any failure exits non-zero:
   2. kernels against their plain PyTorch versions on the card, at the main
      path's shapes (S=128 streams, F=500 frames), with their times, bounds
      and, where one PyTorch call computes the same function, its time;
-  3. the slice: a 2-channel 30 s 48 kHz 16-bit WAV through ``denoise_file``
-     (int16 wire) and the same samples through ``denoise_array`` (f32), on
-     the card, held against the port's CPU path; every kernel's launch count
-     must have risen in this phase;
-  4. throughput: ``denoise_batch`` at S=128, F=500 on the card, 20 blocks
-     per stream, timed in 3 calls (median and spread).
+  3. the default (FFT) path: a 2-channel 30 s 48 kHz 16-bit WAV through
+     ``denoise_file`` (int16 wire) and the same samples through
+     ``denoise_array`` (f32), on the card, held against the port's CPU path;
+     the launch counts of K1-K3 must have risen in this phase, K4-K6's must
+     stay at zero;
+  4. the fused-spectra path (``CRISPY_FUSED_SPECTRA=on``): the same WAV and
+     samples through the same entry points, held against the port's CPU
+     fused path on the first two blocks (10 s) and the card's FFT path on
+     all of it; all six launch counts must rise;
+  5. throughput: ``denoise_batch`` at S=128, F=500 on the card, 20 blocks
+     per stream, timed in 3 calls (median and spread), and the block step
+     of each spectra path by CUDA events.
 
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``crispy_tpu``.
@@ -23,7 +29,9 @@ Then one JSON line with every kernel's numbers, and as the last line
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -46,6 +54,9 @@ PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 
 K1_TOL = 1e-5  # f32 sums in another order than cuBLAS, over a 500-frame recurrence
+SPEC_TOL = 1e-5  # K4-K6, x max|plain|: f32 sums of 960-2048 terms in another order
+EX_RTOL = 1e-4  # K4, K5 band energies, relative
+SPEC_SCALE = 9000.0  # input scale of the JAX package's own K4-K6 tests
 F32_TOL = 1.5e-4  # the JAX package's own oracle tolerance
 I16_TOL = 1  # LSB
 
@@ -83,6 +94,13 @@ def bound(nbytes: float, flops: float):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
+def rfft_flops(n: int) -> float:
+    """Operations of an n-point real FFT (or its inverse) by the usual
+    nominal count, 2.5 n log2 n: the least the spectra kernels' DFTs need,
+    whatever the kernels execute."""
+    return 2.5 * n * math.log2(n)
+
+
 def speechlike(n: int, rng, f0: float, sr: int = 48000, level: float = 0.4) -> np.ndarray:
     """Harmonic tone with a slow amplitude wobble plus a little noise."""
     t = np.arange(n) / sr
@@ -92,7 +110,105 @@ def speechlike(n: int, rng, f0: float, sr: int = 48000, level: float = 0.4) -> n
     return (level * sig / np.max(np.abs(sig))).astype(np.float32)
 
 
-def kernel_phase(torch, pipeline, rk, ok, params, dev):
+def spectra_rows(torch, pipeline, fk, params, dev, rng):
+    """K4, K5 and K6 against their plain versions at S=128, F=500.
+
+    Their bounds count the operations of the function, an FFT per window,
+    not those of the dense DFT products the kernels execute; library_ms is
+    torch.matmul's bare product (no windowing, band energies or overlap-add)
+    and torch.fft's transform of the same frames is printed beside it."""
+    S, F, FR, WIN = S_MAIN, F_MAIN, pipeline.FRAME, pipeline.WIN
+    rows = []
+    ext = torch.from_numpy(rng.standard_normal((S, pipeline.HIST + 1 + F * FR),
+                                               dtype=np.float32) * SPEC_SCALE).to(dev)
+    ext_a = ext[:, 1 + pipeline.HIST - FR:]  # in place, as the pipeline passes it
+    wins = torch.from_numpy(rng.standard_normal((S, F, WIN), dtype=np.float32)
+                            * SPEC_SCALE).to(dev)
+    mem = torch.from_numpy(rng.standard_normal((S, FR), dtype=np.float32)
+                           * SPEC_SCALE).to(dev)
+    band, dft_pad = params["band_e_pad"], params["dft_fwd_pad"]
+    inva, invb = params["dft_inv_a"], params["dft_inv_b"]
+    nb, nf = band.shape[1], pipeline.NFREQ
+    # per window: the window, the FFT, re^2 + im^2, a multiply-add per band weight
+    fwd_flops = S * F * (WIN + rfft_flops(WIN) + 3.0 * nf + 2.0 * int((band != 0).sum()))
+    # per frame: the inverse FFT, the window, the overlap-add
+    inv_flops = S * F * (rfft_flops(WIN) + WIN + FR)
+    yx_bytes = S * F * (fk.YPAD + nb) * 4  # Y and Ex written
+    inv_cat = torch.cat([inva, invb], dim=1)
+    awin = ext_a.unfold(1, WIN, FR).reshape(S * F, WIN)  # a copy, for the product alone
+    window = torch.cat([params["half_window"], params["half_window"].flip(0)])
+    fft_in = {"fwd_spectrum_bands": awin * window, "win_spectrum_bands": wins * window}
+
+    cases = [
+        ("fwd_spectrum_bands", "spectrum_fwd.cu", "pallas_frontend.py:132",
+         lambda: fk.fwd_spectrum_bands(ext_a, dft_pad, band, F),
+         lambda: fk.fwd_spectrum_bands_reference(ext_a, dft_pad, band, F),
+         lambda: torch.matmul(awin, dft_pad), fwd_flops,
+         S * (F + 1) * FR * 4 + (dft_pad.numel() + band.numel()) * 4 + yx_bytes),
+        ("win_spectrum_bands", "spectrum_fwd.cu", "pallas_frontend.py:196",
+         lambda: fk.win_spectrum_bands(wins, dft_pad, band),
+         lambda: fk.win_spectrum_bands_reference(wins, dft_pad, band),
+         lambda: torch.matmul(wins.reshape(S * F, WIN), dft_pad), fwd_flops,
+         (wins.numel() + dft_pad.numel() + band.numel()) * 4 + yx_bytes),
+    ]
+    for name, src, replaces, kern, plain, lib, flops, nbytes in cases:
+        Y, Ex = kern()
+        rY, rEx = plain()
+        torch.cuda.synchronize()
+        err = float((Y - rY).abs().max())
+        ymax = float(rY.abs().max())
+        pad = max(float(Y[..., 481:512].abs().max()), float(Y[..., 993:].abs().max()))
+        ex_rel = float(((Ex - rEx).abs() / rEx.abs()).max())
+        ms = cuda_ms(kern, 10)
+        plain_ms = cuda_ms(plain, 5)
+        library_ms = cuda_ms(lib, 5)
+        frames = fft_in[name]
+        fft_ms = cuda_ms(lambda: torch.fft.rfft(frames, dim=-1), 5)
+        b_ms, b_by = bound(nbytes, flops)
+        print(f"{name}: max|Y kernel-plain|={err:.3e} (tol {SPEC_TOL} x {ymax:.1f}), "
+              f"Ex max rel {ex_rel:.3e} (tol {EX_RTOL}), pad max {pad}; kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, torch.matmul product only {library_ms:.4f} ms, "
+              f"torch.fft.rfft of the windowed frames {fft_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}; {flops / 1e9:.2f} GFLOP as FFTs, {nbytes / 1e6:.1f} MB)")
+        if not (err <= SPEC_TOL * ymax and ex_rel <= EX_RTOL and pad == 0.0):
+            fail(f"{name} differs from its plain version: Y {err}, Ex rel {ex_rel}, pad {pad}")
+        rows.append({"name": name, "route": "cuda", "source": f"crispy_tpu_torch/csrc/{src}",
+                     "replaces": f"crispy_tpu/dsp/rnnoise/{replaces}", "max_abs_err": err,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": library_ms})
+
+    # K6 on the analysis spectra K4's plain version gives for ext.
+    Yin = fk.fwd_spectrum_bands_reference(ext_a, dft_pad, band, F)[0].contiguous()
+    out, new_mem = fk.inv_spectrum_ola(Yin, inva, invb, mem)
+    rout, rmem = fk.inv_spectrum_ola_reference(Yin, inva, invb, mem)
+    torch.cuda.synchronize()
+    err = float((out - rout).abs().max())
+    err_mem = float((new_mem - rmem).abs().max())
+    omax, mmax = float(rout.abs().max()), float(rmem.abs().max())
+    ms = cuda_ms(lambda: fk.inv_spectrum_ola(Yin, inva, invb, mem), 10)
+    plain_ms = cuda_ms(lambda: fk.inv_spectrum_ola_reference(Yin, inva, invb, mem), 5)
+    yflat = Yin.reshape(S * F, fk.YPAD)
+    library_ms = cuda_ms(lambda: torch.matmul(yflat, inv_cat), 5)
+    Yc = torch.complex(Yin[..., :nf], Yin[..., fk.IM0: fk.IM0 + nf])
+    fft_ms = cuda_ms(lambda: torch.fft.irfft(Yc, n=WIN, dim=-1), 5)
+    nbytes = (Yin.numel() + inva.numel() + invb.numel() + 2 * mem.numel() + rout.numel()) * 4
+    b_ms, b_by = bound(nbytes, inv_flops)
+    print(f"inv_spectrum_ola: max|out kernel-plain|={err:.3e} (tol {SPEC_TOL} x {omax:.1f}), "
+          f"new_mem {err_mem:.3e} (tol {SPEC_TOL} x {mmax:.1f}); kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, torch.matmul product only {library_ms:.4f} ms, "
+          f"torch.fft.irfft of the spectra {fft_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+          f"{inv_flops / 1e9:.2f} GFLOP as FFTs, {nbytes / 1e6:.1f} MB)")
+    if not (err <= SPEC_TOL * omax and err_mem <= SPEC_TOL * mmax):
+        fail(f"inv_spectrum_ola differs from its plain version: out {err}, new_mem {err_mem}")
+    rows.append({"name": "inv_spectrum_ola", "route": "cuda",
+                 "source": "crispy_tpu_torch/csrc/spectrum_inv.cu",
+                 "replaces": "crispy_tpu/dsp/rnnoise/pallas_frontend.py:261",
+                 "max_abs_err": max(err, err_mem), "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms})
+    return rows
+
+
+def kernel_phase(torch, pipeline, rk, ok, fk, params, dev):
     """Phase 2: each kernel against its plain version at S=128, F=500."""
     rng = np.random.default_rng(SEED)
     S, F = S_MAIN, F_MAIN
@@ -111,7 +227,7 @@ def kernel_phase(torch, pipeline, rk, ok, params, dev):
     err = max(float((x - y).abs().max()) for x, y in
               [(a1, b1), (a2, b2), (a3, b3)] + [(sa[k], sb[k]) for k in sa])
     ms = cuda_ms(lambda: rk.nn_scan(params, state, feats, silence), 10)
-    plain_ms = cuda_ms(lambda: rk.nn_scan_reference(params, state, feats, silence), 2, 1)
+    plain_ms = cuda_ms(lambda: rk.nn_scan_reference(params, state, feats, silence), 1, 0)
     macs = sum(params[k].numel() for k in rk._NN_WEIGHTS
                if k.endswith(".w") or k.endswith(".u"))
     nbytes = (feats.numel() * 4 + silence.numel() + 2 * S * rk._STATE * 4
@@ -192,7 +308,22 @@ def kernel_phase(torch, pipeline, rk, ok, params, dev):
                  "replaces": "crispy_tpu/dsp/rnnoise/pallas_ops.py:68", "max_abs_err": err,
                  "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                  "library_ms": library_ms})
-    return rows
+    return rows + spectra_rows(torch, pipeline, fk, params, dev, rng)
+
+
+@contextlib.contextmanager
+def spectra_path(switch: str):
+    """CRISPY_FUSED_SPECTRA=switch ("on": the fused-spectra path, "off": the
+    FFT path) inside the block, restored after it."""
+    old = os.environ.get("CRISPY_FUSED_SPECTRA")
+    os.environ["CRISPY_FUSED_SPECTRA"] = switch
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["CRISPY_FUSED_SPECTRA"]
+        else:
+            os.environ["CRISPY_FUSED_SPECTRA"] = old
 
 
 def pitch_track(torch, pipeline, params, audio: np.ndarray, dev) -> np.ndarray:
@@ -227,6 +358,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from crispy_tpu_torch import _build
     from crispy_tpu_torch.device import resolve_device
+    from crispy_tpu_torch.dsp.rnnoise import frontend_kernels as fk
     from crispy_tpu_torch.dsp.rnnoise import ops_kernels as ok
     from crispy_tpu_torch.dsp.rnnoise import pipeline
     from crispy_tpu_torch.dsp.rnnoise import rnn_kernels as rk
@@ -255,9 +387,9 @@ def main() -> int:
 
     # --- 2: kernels against their plain versions --------------------------
     with torch.no_grad():
-        rows = kernel_phase(torch, pipeline, rk, ok, params, dev)
+        rows = kernel_phase(torch, pipeline, rk, ok, fk, params, dev)
 
-    # --- 3: the slice through its entry points ----------------------------
+    # --- 3 and 4: the slice through its entry points, on each spectra path ---
     rng = np.random.default_rng(SEED + 1)
     sr = 48000
     n = sr * SLICE_SECONDS
@@ -265,10 +397,18 @@ def main() -> int:
     pcm = (np.clip(stereo, -1.0, 1.0) * 32767.0).astype(np.int16)  # [T, 2]
     audio = pcm.T.astype(np.float32) / 32768.0  # [2, T], the WAV's decoded samples
     kernels = {"nn_scan": rk.nn_scan, "rd_scan": rk.rd_scan,
-               "pitch_window_gather": ok.pitch_window_gather}
-    with tempfile.TemporaryDirectory() as tmp:
-        src, dst = Path(tmp) / "in.wav", Path(tmp) / "out.wav"
-        wavio.write_wav(src, pcm, sr)
+               "pitch_window_gather": ok.pitch_window_gather,
+               "fwd_spectrum_bands": fk.fwd_spectrum_bands,
+               "win_spectrum_bands": fk.win_spectrum_bands,
+               "inv_spectrum_ola": fk.inv_spectrum_ola}
+    fused_only = ("fwd_spectrum_bands", "win_spectrum_bands", "inv_spectrum_ola")
+
+    def entry_points(tag: str, tmp: Path, ref_blocks=None):
+        """denoise_file and denoise_array on the card, held against the CPU
+        path (on the first ref_blocks blocks only, if given: the output up
+        to a block boundary depends on nothing after it); returns the f32
+        output and the launch counts of this run."""
+        src, dst = tmp / "in.wav", tmp / f"out_{tag}.wav"
         for k in kernels.values():
             k.launches = 0
         t0 = time.perf_counter()
@@ -279,38 +419,58 @@ def main() -> int:
         launches = {name: k.launches for name, k in kernels.items()}
         out16, _ = wavio.read_wav(dst)
         out16 = np.round(out16.T * 32768.0).astype(np.int32)  # exact: 16-bit PCM back
-    print(f"[3] denoise_file + denoise_array on the card: {info}, {t_gpu:.2f} s; "
-          f"launches {launches}")
-    for name, c in launches.items():
-        if c <= 0:
-            fail(f"kernel {name} was not launched on the main path")
-    t0 = time.perf_counter()
-    ref = denoiser.denoise_array(audio, model=model, device="cpu")
-    t_cpu = time.perf_counter() - t0
-    ref16 = (np.clip(ref, -1.0, 1.0) * 32767.0).astype(np.int16).astype(np.int32)
-    if out_f32.shape != audio.shape or not np.isfinite(out_f32).all():
-        fail(f"bad f32 output: shape {out_f32.shape}, finite {np.isfinite(out_f32).all()}")
-    if out16.shape != audio.shape:
-        fail(f"bad int16 output shape {out16.shape}")
-    f32_err = float(np.abs(out_f32 - ref).max())
-    i16_err = int(np.abs(out16 - ref16).max())
-    print(f"[3] vs the port's CPU path ({t_cpu:.1f} s): f32 max|diff|={f32_err:.3e} "
-          f"(tol {F32_TOL}), int16 max|diff|={i16_err} LSB (tol {I16_TOL}); "
-          f"output rms {float(np.sqrt(np.mean(out_f32 ** 2))):.4f}, input rms "
-          f"{float(np.sqrt(np.mean(audio ** 2))):.4f}")
-    if not f32_err <= F32_TOL:
-        fail(f"f32 path differs from the CPU path by {f32_err}")
-    if not i16_err <= I16_TOL:
-        fail(f"int16 path differs from the CPU path by {i16_err} LSB")
-    with torch.no_grad():
-        p_gpu = pitch_track(torch, pipeline, params, audio, dev)
-        p_cpu = pitch_track(torch, pipeline, pipeline.make_params(model, "cpu"), audio,
-                            torch.device("cpu"))
-    agree = float(np.mean(p_gpu == p_cpu))
-    print(f"[3] pitch indices agreeing card vs CPU: {agree:.6f} of {p_gpu.size} "
-          f"({int(np.sum(p_gpu != p_cpu))} differ)")
+        print(f"[{tag}] denoise_file + denoise_array on the card: {info}, {t_gpu:.2f} s; "
+              f"launches {launches}")
+        n_ref = audio.shape[1] if ref_blocks is None else ref_blocks * F_MAIN * pipeline.FRAME
+        t0 = time.perf_counter()
+        ref = denoiser.denoise_array(audio[:, :n_ref], model=model, device="cpu")
+        t_cpu = time.perf_counter() - t0
+        ref16 = (np.clip(ref, -1.0, 1.0) * 32767.0).astype(np.int16).astype(np.int32)
+        if out_f32.shape != audio.shape or not np.isfinite(out_f32).all():
+            fail(f"bad f32 output: shape {out_f32.shape}, finite {np.isfinite(out_f32).all()}")
+        if out16.shape != audio.shape:
+            fail(f"bad int16 output shape {out16.shape}")
+        f32_err = float(np.abs(out_f32[:, :n_ref] - ref).max())
+        i16_err = int(np.abs(out16[:, :n_ref] - ref16).max())
+        print(f"[{tag}] vs the port's CPU path on the first {n_ref / sr:.0f} s ({t_cpu:.1f} s): "
+              f"f32 max|diff|={f32_err:.3e} "
+              f"(tol {F32_TOL}), int16 max|diff|={i16_err} LSB (tol {I16_TOL}); "
+              f"output rms {float(np.sqrt(np.mean(out_f32 ** 2))):.4f}, input rms "
+              f"{float(np.sqrt(np.mean(audio ** 2))):.4f}")
+        if not f32_err <= F32_TOL:
+            fail(f"[{tag}] f32 path differs from the CPU path by {f32_err}")
+        if not i16_err <= I16_TOL:
+            fail(f"[{tag}] int16 path differs from the CPU path by {i16_err} LSB")
+        return out_f32, launches
 
-    # --- 4: throughput -----------------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        wavio.write_wav(Path(tmp) / "in.wav", pcm, sr)
+        with spectra_path("off"):
+            out_fft, launches = entry_points("3", Path(tmp))
+        for name, c in launches.items():
+            if (c > 0) == (name in fused_only):
+                fail(f"kernel {name}: {c} launches on the default path")
+        with torch.no_grad():
+            p_gpu = pitch_track(torch, pipeline, params, audio, dev)
+            p_cpu = pitch_track(torch, pipeline, pipeline.make_params(model, "cpu"), audio,
+                                torch.device("cpu"))
+        agree = float(np.mean(p_gpu == p_cpu))
+        print(f"[3] pitch indices agreeing card vs CPU: {agree:.6f} of {p_gpu.size} "
+              f"({int(np.sum(p_gpu != p_cpu))} differ)")
+
+        with spectra_path("on"):
+            out_fused, launches_fused = entry_points("4", Path(tmp), ref_blocks=2)
+        for name, c in launches_fused.items():
+            if c <= 0:
+                fail(f"kernel {name} was not launched on the fused-spectra path")
+        fft_err = float(np.abs(out_fused - out_fft).max())
+        print(f"[4] fused vs the card's FFT path: f32 max|diff|={fft_err:.3e} (tol {F32_TOL})")
+        if not fft_err <= F32_TOL:
+            fail(f"the fused path differs from the FFT path by {fft_err}")
+    for name in fused_only:
+        launches[name] = launches_fused[name]
+
+    # --- 5: throughput -----------------------------------------------------
     # THROUGHPUT_BLOCKS blocks per stream (a 10 s speech-like signal repeated),
     # timed THROUGHPUT_RUNS times after a warm-up call; the median is the
     # number, the spread says how far one reading can be trusted.
@@ -318,32 +478,37 @@ def main() -> int:
                      for s in range(S_MAIN)])
     batch = np.tile(base, (1, THROUGHPUT_BLOCKS // 2))
     T = batch.shape[1]
-    pipeline.denoise_batch(batch[:, : 2 * F_MAIN * pipeline.FRAME], params=params)  # warm-up
-    torch.cuda.synchronize()
     walls = []
-    for _ in range(THROUGHPUT_RUNS):
-        t0 = time.perf_counter()
-        out = pipeline.denoise_batch(batch, params=params)
-        walls.append(time.perf_counter() - t0)
-        if out.shape != batch.shape or not np.isfinite(out).all():
-            fail("bad throughput-phase output")
+    with spectra_path("off"):
+        pipeline.denoise_batch(batch[:, : 2 * F_MAIN * pipeline.FRAME], params=params)  # warm-up
+        torch.cuda.synchronize()
+        for _ in range(THROUGHPUT_RUNS):
+            t0 = time.perf_counter()
+            out = pipeline.denoise_batch(batch, params=params)
+            walls.append(time.perf_counter() - t0)
+            if out.shape != batch.shape or not np.isfinite(out).all():
+                fail("bad throughput-phase output")
     xrts = [S_MAIN * T / 48000 / w for w in walls]
     xrt = float(np.median(xrts))
     spread = (max(xrts) - min(xrts)) / xrt
     with torch.no_grad():
         blk = torch.from_numpy(batch[:, : F_MAIN * pipeline.FRAME]).to(dev)
         st = pipeline.init_state(S_MAIN, dev)
-        step_ms = cuda_ms(lambda: pipeline.denoise_block(params, st, blk), 5)
-    print(f"[4] denoise_batch S={S_MAIN} F={F_MAIN} ({THROUGHPUT_BLOCKS} blocks, "
+        with spectra_path("off"):
+            step_ms = cuda_ms(lambda: pipeline.denoise_block(params, st, blk), 5)
+        with spectra_path("on"):
+            fused_ms = cuda_ms(lambda: pipeline.denoise_block(params, st, blk), 5)
+    rt = S_MAIN * F_MAIN * 480 / 48000 * 1e3
+    print(f"[5] denoise_batch S={S_MAIN} F={F_MAIN} ({THROUGHPUT_BLOCKS} blocks, "
           f"{T / 48000:.0f} s per stream), {THROUGHPUT_RUNS} runs: wall "
           f"{', '.join(f'{w:.3f}' for w in walls)} s; {xrt:.1f}x realtime at 48 kHz (median; "
           f"runs {', '.join(f'{x:.1f}' for x in xrts)}; spread {100 * spread:.1f}%); "
-          f"block step {step_ms:.3f} ms on the card = "
-          f"{S_MAIN * F_MAIN * 480 / 48000 / (step_ms / 1e3):.1f}x realtime [{card}]")
+          f"block step on the card: FFT path {step_ms:.3f} ms = {rt / step_ms:.1f}x realtime, "
+          f"fused-spectra path {fused_ms:.3f} ms = {rt / fused_ms:.1f}x realtime [{card}]")
 
     for r in rows:
         r["launches"] = launches[r["name"]]
-    print(f"[5] total {time.perf_counter() - t_start:.1f} s")
+    print(f"[6] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -4,13 +4,16 @@ Every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into an
 object file, all sources at once in parallel, and the objects are linked into
 one shared library with a plain C interface, loaded with ``ctypes``. The build
 happens at first use, into ``_build/`` beside this file (listed in
-``.gitignore``), under a name that hashes the sources and flags, so a changed
-source is rebuilt and an unchanged one is loaded as it is. Only the sources in
-the package are used. A failed ``nvcc`` raises with its output.
+``.gitignore``), under a name that hashes the sources, the headers they share
+(``csrc/*.cuh``) and the flags, so a changed source is rebuilt and an
+unchanged one is loaded as it is. Only the sources in the package are used.
+A failed ``nvcc`` raises with its output.
 
 ``--fmad=false`` keeps nvcc from contracting a multiply and an add into one
 FMA: the remove_doubling scan (K2) must round exactly as the plain PyTorch
-version's separate operations do, because it decides pitch indices.
+version's separate operations do, because it decides pitch indices. The
+spectra kernels (K4-K6) write their products with explicit ``__fmaf_rn``,
+which the flag leaves alone.
 """
 
 from __future__ import annotations
@@ -40,6 +43,8 @@ _SIGNATURES = {
     "crispy_nn_scan": [_P] * 23 + [_I, _I, _I, _P],
     "crispy_rd_scan": [_P] * 6 + [_I, _I, _I, _P],
     "crispy_pitch_gather": [_P] * 3 + [_I, _I, _I, _I, _P],
+    "crispy_spectrum_bands": [_P, _I, _I, _I, _I] + [_P] * 4 + [_I, _P],
+    "crispy_inv_spectrum_ola": [_P] * 6 + [_I, _I, _I, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -62,7 +67,7 @@ def _sources() -> List[Path]:
 
 def _library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(SRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libcrispy_kernels_{h.hexdigest()[:16]}.so"

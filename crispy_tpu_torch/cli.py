@@ -3,6 +3,9 @@
   python -m crispy_tpu_torch.cli denoise IN.wav OUT.wav   RNNoise on the card
   python -m crispy_tpu_torch.cli bench [--streams N]      denoise throughput
 
+``CRISPY_FUSED_SPECTRA=on`` runs either through the fused-spectra kernels
+(K4-K6) in place of the FFTs.
+
 Both run on the CUDA card by default and fail without one; ``--device cpu``
 runs the plain PyTorch path instead.
 """
@@ -40,7 +43,8 @@ BENCH_STEPS = 5
 def _cmd_bench(args) -> int:
     """Denoise block-step throughput on the device (one JSON line): S
     streams of random audio, BENCH_FRAMES frames per block, BENCH_STEPS
-    block steps timed after a warm-up step."""
+    block steps timed after a warm-up step. ``spectra`` says which spectra
+    path ran: "fused" (K4-K6, ``CRISPY_FUSED_SPECTRA=on``) or "fft"."""
     import numpy as np
     import torch
 
@@ -70,7 +74,8 @@ def _cmd_bench(args) -> int:
     device = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     rec = {"metric": "rnnoise_denoise_realtime_factor",
            "value": S * F * 480 / 48000 / dt, "unit": "x_realtime_48khz",
-           "streams": S, "frames_per_block": F, "block_ms": dt * 1e3, "device": device}
+           "streams": S, "frames_per_block": F, "block_ms": dt * 1e3, "device": device,
+           "spectra": "fused" if pipeline._use_fused_spectra() else "fft"}
     if args.profile:
         rec["profile"] = _profile(params, state, block, BENCH_STEPS, dev)
     print(json.dumps(rec))

@@ -13,7 +13,17 @@ one big batch, and the genuinely sequential recurrences are isolated:
   * the GRU network and lastg gain smoothing: K1 (``rnn_kernels.nn_scan``).
 
 The pitch-delayed windows come from K3 (``ops_kernels.pitch_window_gather``).
-On tensors on the card those three sites launch the CUDA kernels; on tensors
+
+With ``CRISPY_FUSED_SPECTRA=on`` (read at each block step, as the JAX package
+reads it) the spectra go through the fused-spectra path instead of
+``torch.fft``: K4 (``frontend_kernels.fwd_spectrum_bands``) forms the analysis
+windows from the HP signal and returns their spectra and band energies, K5
+(``win_spectrum_bands``) does the same for K3's pitch-delayed windows, the
+pitch filter runs on the padded [.., 1024] spectrum layout, and K6
+(``inv_spectrum_ola``) synthesises with the overlap-add folded in. The default
+is the FFT path.
+
+On tensors on the card these kernel sites launch the CUDA kernels; on tensors
 on the CPU they take their plain PyTorch versions.
 
 Layout and parameter keys match the JAX package at the public functions:
@@ -25,6 +35,7 @@ throughout (TF32 is off, see ``device.py``).
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional
 
 import numpy as np
@@ -32,6 +43,8 @@ import torch
 
 from ...device import resolve_device
 from . import constants as C
+from .frontend_kernels import IM0, YPAD, fwd_spectrum_bands, inv_spectrum_ola, win_spectrum_bands
+from .frontend_kernels import pad_band_e, pad_dft_fwd, pad_dft_inv
 from .ops_kernels import pitch_window_gather, rd_candidate_gather
 from .rnn_kernels import nn_scan, rd_scan
 from .weights import RNNoiseModel, builtin_model
@@ -60,12 +73,16 @@ _LAYER_KEYS = tuple(
     + [f"{n}.{p}" for n in ("vad_gru", "noise_gru", "denoise_gru") for p in "wub"])
 
 # The keys of the port's parameter dict: a subset of the JAX package's
-# make_params keys (the TPU-only matmul-DFT tables are not needed here).
+# make_params keys (its TPU-only radix and split matmul-DFT tables, and the
+# 512-row halves of dft_fwd_pad that the TPU's K4 takes, are not needed here);
+# the fused-spectra path reads the last six.
 PARAM_KEYS = (
     "biq_pows_re", "biq_pows_im", "biq_toeplitz", "biq_kinj_re", "biq_kinj_im",
     "biq_pvec_re", "biq_pvec_im", "esw_4", "esw_fine", "half_window", "band_e",
     "band_interp", "dct", "tansig_table", "second_check",
-) + _LAYER_KEYS
+) + _LAYER_KEYS + (
+    "dft_fwd_pad", "band_e_pad", "band_e_1024", "band_interp_1024", "dft_inv_a", "dft_inv_b",
+)
 
 
 # ---------------------------------------------------------------------------
@@ -123,6 +140,40 @@ def _esw_tables() -> Dict[str, np.ndarray]:
     return {"esw_4": w4, "esw_fine": wf}
 
 
+def _fused_spectra_tables(band_e: np.ndarray, band_interp: np.ndarray) -> Dict[str, np.ndarray]:
+    """The fused-spectra path's tables on the padded [.., 1024] layout (re
+    0..480, im 512..992), as the JAX package builds them: the windowed
+    960-point real DFT in float64, cast to f32, with the Vorbis window and
+    RNNoise's 1/N forward scaling folded in; the band and interpolation
+    tables duplicated across both halves so they act on that layout."""
+    n = np.arange(WIN, dtype=np.float64)[:, None]
+    k = np.arange(NFREQ, dtype=np.float64)[None, :]
+    ang = 2.0 * np.pi * n * k / WIN
+    w = C.full_window().astype(np.float64)[:, None]
+    fwd_re = ((w * np.cos(ang)) / WIN).astype(np.float32)  # [960, 481]
+    fwd_im = ((-w * np.sin(ang)) / WIN).astype(np.float32)
+    ck = np.full(NFREQ, 2.0)
+    ck[0] = ck[-1] = 1.0
+    # inverse (x WIN) with the synthesis window folded in: [481, 960]
+    inv_re = ((ck[:, None] * np.cos(ang.T)) * w.T).astype(np.float32)
+    inv_im = ((-ck[:, None] * np.sin(ang.T)) * w.T).astype(np.float32)
+    t: Dict[str, np.ndarray] = {}
+    t["dft_fwd_pad"] = pad_dft_fwd(np.concatenate([fwd_re, fwd_im], axis=1))
+    t["band_e_pad"] = pad_band_e(band_e)  # [512, 22]
+    be = np.zeros((YPAD, NB), np.float32)
+    be[:NFREQ] = band_e
+    be[IM0: IM0 + NFREQ] = band_e
+    t["band_e_1024"] = be
+    bi = np.zeros((NB, YPAD), np.float32)
+    bi[:, :NFREQ] = band_interp
+    bi[:, IM0: IM0 + NFREQ] = band_interp
+    t["band_interp_1024"] = bi
+    inv_pad = pad_dft_inv(inv_re, inv_im)  # [1024, 960]
+    t["dft_inv_a"] = inv_pad[:, :FRAME].copy()
+    t["dft_inv_b"] = inv_pad[:, FRAME:].copy()
+    return t
+
+
 def make_params(model: Optional[RNNoiseModel] = None, device=None) -> Dict[str, torch.Tensor]:
     """Tables and weights on ``device`` (default the card), keyed as the JAX
     package's ``make_params`` keys them."""
@@ -134,6 +185,7 @@ def make_params(model: Optional[RNNoiseModel] = None, device=None) -> Dict[str, 
     t["half_window"] = C.half_window()
     t["band_e"] = C.band_energy_matrix().T  # [481, 22] for e @ W
     t["band_interp"] = C.band_interp_matrix().T  # [22, 481] for g @ W
+    t.update(_fused_spectra_tables(t["band_e"], t["band_interp"]))
     t["dct"] = C.dct_matrix().T  # [22, 22] for x @ D
     t["tansig_table"] = C.tansig_table()
     t["second_check"] = C.SECOND_CHECK.astype(np.int32)
@@ -377,6 +429,14 @@ def _pitch_index(params, state, ext: torch.Tensor, F: int):
 # Stage 3: spectra, band energies, features
 # ---------------------------------------------------------------------------
 
+def _use_fused_spectra() -> bool:
+    """The fused-spectra path (K4-K6) instead of the FFT path, with
+    ``CRISPY_FUSED_SPECTRA=on``, the JAX package's own switch; read at each
+    call. Off by default: on the H100 the dense 960-point DFT products are
+    slower than the FFTs (``PERF.md``)."""
+    return os.environ.get("CRISPY_FUSED_SPECTRA", "off") == "on"
+
+
 def _spectrum(params, frames: torch.Tensor):
     """frames [.., 960] → windowed DFT (re, im) [.., 481], RNNoise 1/N scaling."""
     X = torch.fft.rfft(frames * _full_window(params), n=WIN, dim=-1) / WIN
@@ -474,9 +534,16 @@ def frontend_block(params, state, block: torch.Tensor):
     state["hp_tail"] = ext[:, -(HIST + 1):].clone()
 
     # Analysis spectra: window f covers ext[769 + f*480 : +960].
-    awin = _windows(ext[:, 1 + HIST - FRAME:], FRAME, WIN, F)  # [S, F, 960]
-    Xr, Xi = _spectrum(params, awin)
-    Ex = _band_energy(params, Xr, Xi)
+    fused = _use_fused_spectra()
+    if fused:  # K4 reads the windows in place; Y keeps the padded layout
+        Y, Ex = fwd_spectrum_bands(ext[:, 1 + HIST - FRAME:], params["dft_fwd_pad"],
+                                   params["band_e_pad"], F)
+        Xr, Xi = Y[..., :NFREQ], Y[..., IM0: IM0 + NFREQ]
+    else:
+        Y = None
+        awin = _windows(ext[:, 1 + HIST - FRAME:], FRAME, WIN, F)  # [S, F, 960]
+        Xr, Xi = _spectrum(params, awin)
+        Ex = _band_energy(params, Xr, Xi)
 
     pitch_idx, lp, lg = _pitch_index(params, state, ext, F)
     state["last_period"], state["last_gain"] = lp, lg
@@ -485,9 +552,15 @@ def frontend_block(params, state, block: torch.Tensor):
     frame_off = torch.arange(F, dtype=torch.int32, device=dev)[None, :] * FRAME
     starts = (1 + frame_off + (PBUF - WIN) - pitch_idx).to(torch.int32).contiguous()
     pwin = pitch_window_gather(ext, starts)  # [S, F, 960]
-    Pr, Pi = _spectrum(params, pwin)
-    Ep = _band_energy(params, Pr, Pi)
-    Exp = _band_corr(params, Xr, Xi, Pr, Pi) / torch.sqrt(0.001 + Ex * Ep)
+    if fused:  # K5; banded Xr*Pr + Xi*Pi straight on the padded layout
+        P, Ep = win_spectrum_bands(pwin, params["dft_fwd_pad"], params["band_e_pad"])
+        Pr, Pi = P[..., :NFREQ], P[..., IM0: IM0 + NFREQ]
+        Exp = ((Y * P) @ params["band_e_1024"]) / torch.sqrt(0.001 + Ex * Ep)
+    else:
+        P = None
+        Pr, Pi = _spectrum(params, pwin)
+        Ep = _band_energy(params, Pr, Pi)
+        Exp = _band_corr(params, Xr, Xi, Pr, Pi) / torch.sqrt(0.001 + Ex * Ep)
 
     # Features.
     E = torch.sum(Ex, dim=-1)
@@ -518,6 +591,7 @@ def frontend_block(params, state, block: torch.Tensor):
     return state, {
         "Xr": Xr, "Xi": Xi, "Ex": Ex, "Pr": Pr, "Pi": Pi, "Ep": Ep,
         "Exp": Exp, "feats": feats, "silence": silence, "pitch_idx": pitch_idx,
+        "Y": Y, "P": P,  # padded-layout spectra (fused path only; None otherwise)
     }
 
 
@@ -539,6 +613,19 @@ def denoise_block(params, state, block: torch.Tensor):
     r = torch.where(Exp > graw, 1.0, exp2 * (1.0 - g2) / (0.001 + g2 * (1.0 - exp2)))
     r = torch.sqrt(torch.clamp(r, 0.0, 1.0)) * torch.sqrt(Ex / (1e-8 + Ep))
     keep = silence[..., None]
+    if fr["Y"] is not None:
+        # Padded-layout mid-section: the interpolation and band tables are
+        # duplicated across the re and im halves, so the same per-frequency
+        # gains apply without repacking; K6 synthesises with the overlap-add.
+        Y, P = fr["Y"], fr["P"]
+        bi = params["band_interp_1024"]
+        Xp = Y + (r @ bi) * P
+        norm = torch.sqrt(Ex / (1e-8 + (Xp * Xp) @ params["band_e_1024"]))
+        Xo = torch.where(keep, Y, Xp * ((norm @ bi) * (gsmooth @ bi)))
+        out, state["syn_mem"] = inv_spectrum_ola(Xo, params["dft_inv_a"], params["dft_inv_b"],
+                                                 state["syn_mem"])
+        return state, (out / 32768.0).reshape(S, L), vad
+
     rf = _interp_gain(params, r)
     Xpr, Xpi = Xr + rf * Pr, Xi + rf * Pi
     newE = _band_energy(params, Xpr, Xpi)

@@ -251,9 +251,12 @@ def builtin_model() -> RNNoiseModel:
 def params_from_numpy(np_params: Mapping[str, np.ndarray], device=None) -> Dict[str, "torch.Tensor"]:
     """The port's parameter dict from a parameter dict of NumPy arrays with
     the JAX package's keys (its ``make_params`` output, each value passed
-    through ``np.asarray``). Keys the port's pipeline does not read (the
-    TPU-only matmul-DFT, radix and fused-frontend tables) are dropped;
-    the values are copied unchanged, f32 stays f32 and int32 stays int32."""
+    through ``np.asarray``). The keys of ``pipeline.PARAM_KEYS`` are kept,
+    the fused-spectra tables among them; the keys the port's pipeline does
+    not read (the TPU-only radix and split matmul-DFT tables, and the
+    512-row halves ``dft_fwd_a512``/``dft_fwd_b512`` of ``dft_fwd_pad``)
+    are dropped.
+    The values are copied unchanged, f32 stays f32 and int32 stays int32."""
     import torch
 
     from ...device import resolve_device
