@@ -9,7 +9,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
      from ``crispy_tpu_torch/csrc`` (nvcc, one job per source in parallel);
   2. kernels against their plain PyTorch versions on the card, at the main
      path's shapes (S=128 streams, F=500 frames), with their times, bounds
-     and, where one PyTorch call computes the same function, its time;
+     and, where one PyTorch call computes the same function, its time (for
+     the spectra kernels, torch.fft and the bare torch.matmul product);
   3. the default (FFT) path: a 2-channel 30 s 48 kHz 16-bit WAV through
      ``denoise_file`` (int16 wire) and the same samples through
      ``denoise_array`` (f32), on the card, held against the port's CPU path;
@@ -113,10 +114,12 @@ def speechlike(n: int, rng, f0: float, sr: int = 48000, level: float = 0.4) -> n
 def spectra_rows(torch, pipeline, fk, params, dev, rng):
     """K4, K5 and K6 against their plain versions at S=128, F=500.
 
-    Their bounds count the operations of the function, an FFT per window,
-    not those of the dense DFT products the kernels execute; library_ms is
-    torch.matmul's bare product (no windowing, band energies or overlap-add)
-    and torch.fft's transform of the same frames is printed beside it."""
+    Their bounds count the operations of the function, an FFT per window.
+    library_ms is, for K4 and K5 (FFT-structured kernels), torch.fft.rfft of
+    the windowed frames (no padded layout, no band energies), with
+    torch.matmul's bare product against the table printed beside it; for K6
+    (a dense product) torch.matmul's bare product (no overlap-add), with
+    torch.fft.irfft of the spectra printed beside it."""
     S, F, FR, WIN = S_MAIN, F_MAIN, pipeline.FRAME, pipeline.WIN
     rows = []
     ext = torch.from_numpy(rng.standard_normal((S, pipeline.HIST + 1 + F * FR),
@@ -161,15 +164,15 @@ def spectra_rows(torch, pipeline, fk, params, dev, rng):
         ex_rel = float(((Ex - rEx).abs() / rEx.abs()).max())
         ms = cuda_ms(kern, 10)
         plain_ms = cuda_ms(plain, 5)
-        library_ms = cuda_ms(lib, 5)
+        matmul_ms = cuda_ms(lib, 5)
         frames = fft_in[name]
-        fft_ms = cuda_ms(lambda: torch.fft.rfft(frames, dim=-1), 5)
+        library_ms = cuda_ms(lambda: torch.fft.rfft(frames, dim=-1), 5)
         b_ms, b_by = bound(nbytes, flops)
         print(f"{name}: max|Y kernel-plain|={err:.3e} (tol {SPEC_TOL} x {ymax:.1f}), "
               f"Ex max rel {ex_rel:.3e} (tol {EX_RTOL}), pad max {pad}; kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, torch.matmul product only {library_ms:.4f} ms, "
-              f"torch.fft.rfft of the windowed frames {fft_ms:.4f} ms, bound {b_ms:.4f} ms "
-              f"({b_by}; {flops / 1e9:.2f} GFLOP as FFTs, {nbytes / 1e6:.1f} MB)")
+              f"plain {plain_ms:.4f} ms, torch.fft.rfft of the windowed frames "
+              f"{library_ms:.4f} ms, torch.matmul product only {matmul_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP as FFTs, {nbytes / 1e6:.1f} MB)")
         if not (err <= SPEC_TOL * ymax and ex_rel <= EX_RTOL and pad == 0.0):
             fail(f"{name} differs from its plain version: Y {err}, Ex rel {ex_rel}, pad {pad}")
         rows.append({"name": name, "route": "cuda", "source": f"crispy_tpu_torch/csrc/{src}",

@@ -12,8 +12,9 @@ A failed ``nvcc`` raises with its output.
 ``--fmad=false`` keeps nvcc from contracting a multiply and an add into one
 FMA: the remove_doubling scan (K2) must round exactly as the plain PyTorch
 version's separate operations do, because it decides pitch indices. The
-spectra kernels (K4-K6) write their products with explicit ``__fmaf_rn``,
-which the flag leaves alone.
+spectra kernels write every multiply-add they want fused as ``__fmaf_rn``,
+which the flag leaves alone: K4 and K5's FFT butterflies and band sums, K6's
+tile product.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ _SIGNATURES = {
     "crispy_nn_scan": [_P] * 23 + [_I, _I, _I, _P],
     "crispy_rd_scan": [_P] * 6 + [_I, _I, _I, _P],
     "crispy_pitch_gather": [_P] * 3 + [_I, _I, _I, _I, _P],
-    "crispy_spectrum_bands": [_P, _I, _I, _I, _I] + [_P] * 4 + [_I, _P],
+    "crispy_spectrum_bands": [_P, _I, _I, _I, _I] + [_P] * 5 + [_I, _P],
     "crispy_inv_spectrum_ola": [_P] * 6 + [_I, _I, _I, _P],
 }
 

@@ -1,4 +1,4 @@
-// The f32 SIMT tile product shared by the spectra kernels (K4, K5, K6).
+// The f32 SIMT tile product of the inverse spectra kernel (K6).
 //
 // A block of 256 threads computes a 128 x 128 tile of A @ B in 16-deep steps
 // through double-buffered shared memory: while the tile of step k is
@@ -7,9 +7,8 @@
 // __fmaf_rn, which the library-wide --fmad=false does not touch (a*b+c would
 // compile to a separate multiply and add there, at half the rate).
 //
-// The caller supplies the operand loaders, so one product serves K4's windows
-// read in place from the HP signal, K5's gathered windows and K6's
-// (frame, previous frame) rows; the loaders mask the ragged edges themselves.
+// The caller supplies the operand loaders, here K6's (frame, previous frame)
+// rows; the loaders mask the ragged edges themselves.
 
 #pragma once
 

@@ -10,10 +10,12 @@
 Spectra keep the JAX package's padded layout, Y [.., 1024] with the re part of
 frequency k at column k and the im part at 512 + k, zeros elsewhere, and the
 tables are its ``make_params`` tables. K4 and K5 share the CUDA kernel of
-``csrc/spectrum_fwd.cu``; K6 is ``csrc/spectrum_inv.cu``. Each wrapper takes
-its plain PyTorch version (``*_reference``: dense products) for tensors on the
-CPU and launches its kernel for tensors on the card, or raises; it never falls
-back. ``<wrapper>.launches`` counts the kernel launches.
+``csrc/spectrum_fwd.cu``, a real FFT (one warp per window) with the window
+taken from the table's column 0 and the band energies fused; K6 is
+``csrc/spectrum_inv.cu``, a dense tile product. Each wrapper takes its plain
+PyTorch version (``*_reference``: dense products) for tensors on the CPU and
+launches its kernel for tensors on the card, or raises; it never falls back.
+``<wrapper>.launches`` counts the kernel launches.
 """
 
 from __future__ import annotations
@@ -57,6 +59,25 @@ def pad_dft_inv(inv_re: np.ndarray, inv_im: np.ndarray) -> np.ndarray:
     return t
 
 
+def fft_twiddles() -> np.ndarray:
+    """The FFT kernel's twiddles, [961, 2] f32 (re, im), computed in float64
+    and cast as the DFT table is: rows k1 * 32 + l (k1 < 15, l < 32) hold
+    W480^(l k1), rows 480 + m hold W960^m for m = 0..480, W_N = e^(-2 pi i / N)."""
+    k1, lane = np.meshgrid(np.arange(15), np.arange(32), indexing="ij")
+    w = np.concatenate([np.exp(-2j * np.pi * (lane * k1).ravel() / 480.0),
+                        np.exp(-2j * np.pi * np.arange(NFREQ) / 960.0)])
+    return np.stack([w.real, w.imag], axis=1).astype(np.float32)
+
+
+_TWIDDLES = {}  # device -> fft_twiddles() on it
+
+
+def _twiddles_on(dev: torch.device) -> torch.Tensor:
+    if dev not in _TWIDDLES:
+        _TWIDDLES[dev] = torch.from_numpy(fft_twiddles()).to(dev)
+    return _TWIDDLES[dev]
+
+
 # ---------------------------------------------------------------------------
 # Plain versions
 # ---------------------------------------------------------------------------
@@ -94,16 +115,17 @@ def inv_spectrum_ola_reference(Y, inva, invb, syn_mem):
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _spectrum_bands(x, ld_s: int, ld_f: int, S: int, F: int, dft_pad, band_pad, name: str):
-    """Launch csrc/spectrum_fwd.cu on rows x + s*ld_s + f*ld_f (floats)."""
+def _spectrum_bands(x, ld_s: int, hop: int, S: int, F: int, dft_pad, band_pad, name: str):
+    """Launch csrc/spectrum_fwd.cu on windows x + s*ld_s + f*hop (floats)."""
     _require(dft_pad, "dft_pad", torch.float32, (WIN, YPAD))
     _require(band_pad, "band_pad", torch.float32, (IM0, NB))
     dev = x.device
     Y = torch.empty((S, F, YPAD), dtype=torch.float32, device=dev)
     Ex = torch.empty((S, F, NB), dtype=torch.float32, device=dev)
     rc = _build.load().crispy_spectrum_bands(
-        x.data_ptr(), ld_s, ld_f, S, F, dft_pad.data_ptr(), band_pad.data_ptr(), Y.data_ptr(),
-        Ex.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        x.data_ptr(), ld_s, hop, S, F, dft_pad.data_ptr(), band_pad.data_ptr(),
+        _twiddles_on(dev).data_ptr(), Y.data_ptr(), Ex.data_ptr(), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, name)
     return Y, Ex
 
@@ -113,7 +135,12 @@ def fwd_spectrum_bands(ext_a, dft_pad, band_pad, F: int):
     inputs and outputs as ``fwd_spectrum_bands_reference``. It takes the
     whole [960, 1024] table where the TPU kernel takes its two 512-row
     halves. On the card ext_a may be a row-strided view (unit stride along a
-    row): the kernel reads the windows in place."""
+    row): the kernel reads the windows in place.
+
+    The kernel computes the DFT as an FFT and reads only column 0 of
+    dft_pad, which for ``make_params``' windowed DFT table is the window
+    over 960, f32(w[n] / 960); it assumes the rest of the table is that
+    DFT. The plain version uses the whole table."""
     if not _on_card(ext_a, dft_pad, band_pad):
         return fwd_spectrum_bands_reference(ext_a, dft_pad, band_pad, F)
     S = ext_a.shape[0]
@@ -133,13 +160,17 @@ fwd_spectrum_bands.launches = 0
 
 def win_spectrum_bands(wins, dft_pad, band_pad):
     """K5, the counterpart of ``pallas_frontend.win_spectrum_bands``: same
-    inputs and outputs as ``win_spectrum_bands_reference``."""
+    inputs and outputs as ``win_spectrum_bands_reference``. On the card wins
+    must be contiguous and 16-byte aligned, and dft_pad is taken as
+    ``fwd_spectrum_bands`` takes it (column 0 is the window over 960)."""
     if not _on_card(wins, dft_pad, band_pad):
         return win_spectrum_bands_reference(wins, dft_pad, band_pad)
     S, F = wins.shape[:2]
     if S == 0 or F == 0:
         raise ValueError(f"win_spectrum_bands: need S, F > 0, got {tuple(wins.shape)}")
     _require(wins, "wins", torch.float32, (S, F, WIN))
+    if wins.data_ptr() % 16:
+        raise ValueError("win_spectrum_bands: wins must be 16-byte aligned")
     out = _spectrum_bands(wins, F * WIN, WIN, S, F, dft_pad, band_pad, "win_spectrum_bands")
     win_spectrum_bands.launches += 1
     return out

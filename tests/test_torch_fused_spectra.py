@@ -3,9 +3,10 @@
 package's ``pallas_frontend`` and fused block step on the CPU, and the CUDA
 kernels K4-K6 held against their plain versions on the card.
 
-On the CPU the wrappers take their plain PyTorch versions (dense products);
-the JAX kernels run in interpret mode, as tests/test_pallas_frontend.py runs
-them. The JAX block step is forced onto its fused path the way that test
+On the CPU the wrappers take their plain PyTorch versions (dense products;
+tests/test_torch_spectrum_fft.py shows there the identity K4 and K5's FFT
+rests on); the JAX kernels run in interpret mode, as
+tests/test_pallas_frontend.py runs them. The JAX block step is forced onto its fused path the way that test
 forces it, by patching the JAX module inside the test. The tests marked
 ``gpu`` launch the CUDA kernels; here, without a card, they skip.
 """
@@ -227,16 +228,31 @@ def test_mixed_devices_raise(tparams):
 # On the card: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
+def fwd_inputs(S, F, dev, seed=5):
+    """ext and the strided slice ext[:, 769:] the pipeline passes to K4."""
+    rng = np.random.default_rng(seed)
+    ext = torch.from_numpy(
+        (rng.standard_normal((S, HIST + 1 + F * FRAME)) * SCALE).astype(np.float32)).to(dev)
+    return ext[:, 1 + HIST - FRAME:]
+
+
+def win_inputs(S, F, dev, seed=6):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((rng.standard_normal((S, F, WIN)) * SCALE).astype(np.float32)).to(dev)
+
+
+# The kernel takes runs of 16 frames of one stream: F = 1, runs cut short
+# (F = 13, 20, 500) and S from 1 stream to the main path's 128.
+CARD_SHAPES = [(3, 1), (3, 5), (5, 13), (9, 20), (128, 7), (128, 500)]
+
+
 @pytest.mark.gpu
 class TestKernelsOnCard:
-    @pytest.mark.parametrize("S,F", [(3, 5), (9, 20), (128, 7)])
+    @pytest.mark.parametrize("S,F", CARD_SHAPES)
     def test_fwd_spectrum_bands(self, cuda, S, F):
         """In place on a strided slice, as the pipeline passes ext[:, 769:]."""
         p = tp.make_params(tw.deterministic_test_model(), cuda)
-        rng = np.random.default_rng(5)
-        ext = torch.from_numpy(
-            (rng.standard_normal((S, HIST + 1 + F * FRAME)) * SCALE).astype(np.float32)).to(cuda)
-        ext_a = ext[:, 1 + HIST - FRAME:]
+        ext_a = fwd_inputs(S, F, cuda)
         before = fk.fwd_spectrum_bands.launches
         Y, Ex = fk.fwd_spectrum_bands(ext_a, p["dft_fwd_pad"], p["band_e_pad"], F)
         rY, rEx = fk.fwd_spectrum_bands_reference(ext_a, p["dft_fwd_pad"], p["band_e_pad"], F)
@@ -246,18 +262,32 @@ class TestKernelsOnCard:
         assert_pad_zero(Y)
         torch.testing.assert_close(Ex, rEx, rtol=1e-4, atol=0.0)
 
-    @pytest.mark.parametrize("S,F", [(3, 5), (128, 7)])
+    @pytest.mark.parametrize("S,F", CARD_SHAPES)
     def test_win_spectrum_bands(self, cuda, S, F):
         p = tp.make_params(tw.deterministic_test_model(), cuda)
-        rng = np.random.default_rng(6)
-        wins = torch.from_numpy(
-            (rng.standard_normal((S, F, WIN)) * SCALE).astype(np.float32)).to(cuda)
+        wins = win_inputs(S, F, cuda)
+        before = fk.win_spectrum_bands.launches
         Y, Ex = fk.win_spectrum_bands(wins, p["dft_fwd_pad"], p["band_e_pad"])
         rY, rEx = fk.win_spectrum_bands_reference(wins, p["dft_fwd_pad"], p["band_e_pad"])
         torch.cuda.synchronize()
+        assert fk.win_spectrum_bands.launches == before + 1
         assert float((Y - rY).abs().max()) <= 1e-5 * float(rY.abs().max())
         assert_pad_zero(Y)
         torch.testing.assert_close(Ex, rEx, rtol=1e-4, atol=0.0)
+
+    @pytest.mark.parametrize("kernel", ["fwd", "win"])
+    def test_repeat_launch_is_bit_equal(self, cuda, kernel):
+        """The band sums run in a fixed order, without atomics."""
+        p = tp.make_params(tw.deterministic_test_model(), cuda)
+        if kernel == "fwd":
+            ext_a = fwd_inputs(128, 500, cuda)
+            run = lambda: fk.fwd_spectrum_bands(ext_a, p["dft_fwd_pad"], p["band_e_pad"], 500)
+        else:
+            wins = win_inputs(128, 500, cuda)
+            run = lambda: fk.win_spectrum_bands(wins, p["dft_fwd_pad"], p["band_e_pad"])
+        Y1, Ex1 = run()
+        Y2, Ex2 = run()
+        assert torch.equal(Ex1, Ex2) and torch.equal(Y1, Y2)
 
     @pytest.mark.parametrize("S,F", [(3, 1), (5, 33), (128, 7)])
     def test_inv_spectrum_ola(self, cuda, S, F):
@@ -275,6 +305,9 @@ class TestKernelsOnCard:
         wins = torch.zeros((2, 3, WIN), dtype=torch.float64, device=cuda)
         with pytest.raises(ValueError, match="wins"):
             fk.win_spectrum_bands(wins, p["dft_fwd_pad"], p["band_e_pad"])
+        flat = torch.zeros(2 * 3 * WIN + 1, device=cuda)
+        with pytest.raises(ValueError, match="aligned"):  # contiguous, 4 bytes off
+            fk.win_spectrum_bands(flat[1:].view(2, 3, WIN), p["dft_fwd_pad"], p["band_e_pad"])
         ext = torch.zeros((2, 4 * FRAME), device=cuda)
         with pytest.raises(ValueError, match="fwd_spectrum_bands"):
             fk.fwd_spectrum_bands(ext, p["dft_fwd_pad"], p["band_e_pad"], 4)
