@@ -115,11 +115,10 @@ def spectra_rows(torch, pipeline, fk, params, dev, rng):
     """K4, K5 and K6 against their plain versions at S=128, F=500.
 
     Their bounds count the operations of the function, an FFT per window.
-    library_ms is, for K4 and K5 (FFT-structured kernels), torch.fft.rfft of
-    the windowed frames (no padded layout, no band energies), with
-    torch.matmul's bare product against the table printed beside it; for K6
-    (a dense product) torch.matmul's bare product (no overlap-add), with
-    torch.fft.irfft of the spectra printed beside it."""
+    library_ms is, for K4 and K5, torch.fft.rfft of the windowed frames (no
+    padded layout, no band energies), for K6 torch.fft.irfft of the spectra
+    (no window, no overlap-add), with torch.matmul's bare product against
+    the table printed beside it."""
     S, F, FR, WIN = S_MAIN, F_MAIN, pipeline.FRAME, pipeline.WIN
     rows = []
     ext = torch.from_numpy(rng.standard_normal((S, pipeline.HIST + 1 + F * FR),
@@ -191,15 +190,15 @@ def spectra_rows(torch, pipeline, fk, params, dev, rng):
     ms = cuda_ms(lambda: fk.inv_spectrum_ola(Yin, inva, invb, mem), 10)
     plain_ms = cuda_ms(lambda: fk.inv_spectrum_ola_reference(Yin, inva, invb, mem), 5)
     yflat = Yin.reshape(S * F, fk.YPAD)
-    library_ms = cuda_ms(lambda: torch.matmul(yflat, inv_cat), 5)
+    matmul_ms = cuda_ms(lambda: torch.matmul(yflat, inv_cat), 5)
     Yc = torch.complex(Yin[..., :nf], Yin[..., fk.IM0: fk.IM0 + nf])
-    fft_ms = cuda_ms(lambda: torch.fft.irfft(Yc, n=WIN, dim=-1), 5)
+    library_ms = cuda_ms(lambda: torch.fft.irfft(Yc, n=WIN, dim=-1), 5)
     nbytes = (Yin.numel() + inva.numel() + invb.numel() + 2 * mem.numel() + rout.numel()) * 4
     b_ms, b_by = bound(nbytes, inv_flops)
     print(f"inv_spectrum_ola: max|out kernel-plain|={err:.3e} (tol {SPEC_TOL} x {omax:.1f}), "
           f"new_mem {err_mem:.3e} (tol {SPEC_TOL} x {mmax:.1f}); kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, torch.matmul product only {library_ms:.4f} ms, "
-          f"torch.fft.irfft of the spectra {fft_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+          f"{plain_ms:.4f} ms, torch.fft.irfft of the spectra {library_ms:.4f} ms, "
+          f"torch.matmul product only {matmul_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
           f"{inv_flops / 1e9:.2f} GFLOP as FFTs, {nbytes / 1e6:.1f} MB)")
     if not (err <= SPEC_TOL * omax and err_mem <= SPEC_TOL * mmax):
         fail(f"inv_spectrum_ola differs from its plain version: out {err}, new_mem {err_mem}")

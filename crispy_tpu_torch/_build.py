@@ -13,8 +13,8 @@ A failed ``nvcc`` raises with its output.
 FMA: the remove_doubling scan (K2) must round exactly as the plain PyTorch
 version's separate operations do, because it decides pitch indices. The
 spectra kernels write every multiply-add they want fused as ``__fmaf_rn``,
-which the flag leaves alone: K4 and K5's FFT butterflies and band sums, K6's
-tile product.
+which the flag leaves alone: the FFT butterflies of K4-K6, K4 and K5's band
+sums, K6's overlap-add.
 """
 
 from __future__ import annotations
@@ -45,7 +45,7 @@ _SIGNATURES = {
     "crispy_rd_scan": [_P] * 6 + [_I, _I, _I, _P],
     "crispy_pitch_gather": [_P] * 3 + [_I, _I, _I, _I, _P],
     "crispy_spectrum_bands": [_P, _I, _I, _I, _I] + [_P] * 5 + [_I, _P],
-    "crispy_inv_spectrum_ola": [_P] * 6 + [_I, _I, _I, _P],
+    "crispy_inv_spectrum_ola": [_P] * 7 + [_I, _I, _I, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -12,7 +12,9 @@ frequency k at column k and the im part at 512 + k, zeros elsewhere, and the
 tables are its ``make_params`` tables. K4 and K5 share the CUDA kernel of
 ``csrc/spectrum_fwd.cu``, a real FFT (one warp per window) with the window
 taken from the table's column 0 and the band energies fused; K6 is
-``csrc/spectrum_inv.cu``, a dense tile product. Each wrapper takes its plain
+``csrc/spectrum_inv.cu``, an inverse real FFT (one warp per frame) with the
+window taken from the tables' row 0 and the overlap-add fused. Both run the
+480-point FFT of ``csrc/fft480.cuh``. Each wrapper takes its plain
 PyTorch version (``*_reference``: dense products) for tensors on the CPU and
 launches its kernel for tensors on the card, or raises; it never falls back.
 ``<wrapper>.launches`` counts the kernel launches.
@@ -60,8 +62,8 @@ def pad_dft_inv(inv_re: np.ndarray, inv_im: np.ndarray) -> np.ndarray:
 
 
 def fft_twiddles() -> np.ndarray:
-    """The FFT kernel's twiddles, [961, 2] f32 (re, im), computed in float64
-    and cast as the DFT table is: rows k1 * 32 + l (k1 < 15, l < 32) hold
+    """The FFT kernels' twiddles, [961, 2] f32 (re, im), computed in float64
+    and cast as the DFT tables are: rows k1 * 32 + l (k1 < 15, l < 32) hold
     W480^(l k1), rows 480 + m hold W960^m for m = 0..480, W_N = e^(-2 pi i / N)."""
     k1, lane = np.meshgrid(np.arange(15), np.arange(32), indexing="ij")
     w = np.concatenate([np.exp(-2j * np.pi * (lane * k1).ravel() / 480.0),
@@ -181,7 +183,16 @@ win_spectrum_bands.launches = 0
 
 def inv_spectrum_ola(Y, inva, invb, syn_mem):
     """K6, the counterpart of ``pallas_frontend.inv_spectrum_ola``: same
-    inputs and outputs as ``inv_spectrum_ola_reference``."""
+    inputs and outputs as ``inv_spectrum_ola_reference``. On the card Y must
+    be contiguous and 16-byte aligned.
+
+    The kernel computes the inverse DFT as an inverse real FFT and reads
+    only row 0 of inva and invb, which for ``make_params``' windowed inverse
+    table are the window's two halves; it assumes the rest of the table is
+    that inverse DFT (c_k cos and -c_k sin times the window, zero in the
+    rows of Im X_0, Im X_480 and the pads), and never reads Y's pad columns
+    nor the im columns of frequencies 0 and 480. The plain version uses the
+    whole table."""
     if not _on_card(Y, inva, invb, syn_mem):
         return inv_spectrum_ola_reference(Y, inva, invb, syn_mem)
     S, F = Y.shape[:2]
@@ -191,12 +202,15 @@ def inv_spectrum_ola(Y, inva, invb, syn_mem):
     _require(inva, "inva", torch.float32, (YPAD, FRAME))
     _require(invb, "invb", torch.float32, (YPAD, FRAME))
     _require(syn_mem, "syn_mem", torch.float32, (S, FRAME))
+    if Y.data_ptr() % 16:
+        raise ValueError("inv_spectrum_ola: Y must be 16-byte aligned")
     dev = Y.device
     out = torch.empty((S, F * FRAME), dtype=torch.float32, device=dev)
     new_mem = torch.empty((S, FRAME), dtype=torch.float32, device=dev)
     rc = _build.load().crispy_inv_spectrum_ola(
-        Y.data_ptr(), inva.data_ptr(), invb.data_ptr(), syn_mem.data_ptr(), out.data_ptr(),
-        new_mem.data_ptr(), S, F, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        Y.data_ptr(), inva.data_ptr(), invb.data_ptr(), _twiddles_on(dev).data_ptr(),
+        syn_mem.data_ptr(), out.data_ptr(), new_mem.data_ptr(), S, F, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "inv_spectrum_ola")
     inv_spectrum_ola.launches += 1
     return out, new_mem

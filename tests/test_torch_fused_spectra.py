@@ -4,8 +4,8 @@ package's ``pallas_frontend`` and fused block step on the CPU, and the CUDA
 kernels K4-K6 held against their plain versions on the card.
 
 On the CPU the wrappers take their plain PyTorch versions (dense products;
-tests/test_torch_spectrum_fft.py shows there the identity K4 and K5's FFT
-rests on); the JAX kernels run in interpret mode, as
+tests/test_torch_spectrum_fft.py shows there the identities the FFTs of K4,
+K5 and K6 rest on); the JAX kernels run in interpret mode, as
 tests/test_pallas_frontend.py runs them. The JAX block step is forced onto its fused path the way that test
 forces it, by patching the JAX module inside the test. The tests marked
 ``gpu`` launch the CUDA kernels; here, without a card, they skip.
@@ -275,30 +275,48 @@ class TestKernelsOnCard:
         assert_pad_zero(Y)
         torch.testing.assert_close(Ex, rEx, rtol=1e-4, atol=0.0)
 
-    @pytest.mark.parametrize("kernel", ["fwd", "win"])
+    @pytest.mark.parametrize("kernel", ["fwd", "win", "inv"])
     def test_repeat_launch_is_bit_equal(self, cuda, kernel):
-        """The band sums run in a fixed order, without atomics."""
+        """The band sums and the overlap-add run in a fixed order, without
+        atomics."""
         p = tp.make_params(tw.deterministic_test_model(), cuda)
         if kernel == "fwd":
             ext_a = fwd_inputs(128, 500, cuda)
             run = lambda: fk.fwd_spectrum_bands(ext_a, p["dft_fwd_pad"], p["band_e_pad"], 500)
-        else:
+        elif kernel == "win":
             wins = win_inputs(128, 500, cuda)
             run = lambda: fk.win_spectrum_bands(wins, p["dft_fwd_pad"], p["band_e_pad"])
-        Y1, Ex1 = run()
-        Y2, Ex2 = run()
-        assert torch.equal(Ex1, Ex2) and torch.equal(Y1, Y2)
+        else:
+            Y, mem = (t(a).to(cuda) for a in inv_inputs(128, 500, seed=8))
+            run = lambda: fk.inv_spectrum_ola(Y, p["dft_inv_a"], p["dft_inv_b"], mem)
+        a1, b1 = run()
+        a2, b2 = run()
+        assert torch.equal(a1, a2) and torch.equal(b1, b2)
 
-    @pytest.mark.parametrize("S,F", [(3, 1), (5, 33), (128, 7)])
+    # K6 takes runs of 15 output frames: F = 15, 16, 17 and 33 cross run ends.
+    @pytest.mark.parametrize("S,F", CARD_SHAPES + [(3, 15), (3, 16), (3, 17), (5, 33)])
     def test_inv_spectrum_ola(self, cuda, S, F):
         p = tp.make_params(tw.deterministic_test_model(), cuda)
         Y, mem = inv_inputs(S, F, seed=7)
         Y, mem = t(Y).to(cuda), t(mem).to(cuda)
+        before = fk.inv_spectrum_ola.launches
         out, new_mem = fk.inv_spectrum_ola(Y, p["dft_inv_a"], p["dft_inv_b"], mem)
         rout, rmem = fk.inv_spectrum_ola_reference(Y, p["dft_inv_a"], p["dft_inv_b"], mem)
         torch.cuda.synchronize()
+        assert fk.inv_spectrum_ola.launches == before + 1
         assert float((out - rout).abs().max()) <= 1e-5 * float(rout.abs().max())
         assert float((new_mem - rmem).abs().max()) <= 1e-5 * float(rmem.abs().max())
+
+    def test_inv_spectrum_ola_ignores_pad_columns(self, cuda):
+        """The kernel never reads Y's pad columns 481..511 and 993..1023."""
+        p = tp.make_params(tw.deterministic_test_model(), cuda)
+        Y, mem = (t(a).to(cuda) for a in inv_inputs(9, 20, seed=9))
+        Yg = Y.clone()
+        Yg[..., NFREQ: fk.IM0] = float("nan")
+        Yg[..., fk.IM0 + NFREQ:] = -3e38
+        a = fk.inv_spectrum_ola(Y, p["dft_inv_a"], p["dft_inv_b"], mem)
+        b = fk.inv_spectrum_ola(Yg, p["dft_inv_a"], p["dft_inv_b"], mem)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
     def test_wrappers_reject_bad_input(self, cuda):
         p = tp.make_params(tw.deterministic_test_model(), cuda)
@@ -314,6 +332,10 @@ class TestKernelsOnCard:
         with pytest.raises(ValueError, match="Y"):
             fk.inv_spectrum_ola(torch.zeros((2, 3, 962), device=cuda), p["dft_inv_a"],
                                 p["dft_inv_b"], torch.zeros((2, FRAME), device=cuda))
+        flat = torch.zeros(2 * 3 * fk.YPAD + 1, device=cuda)
+        with pytest.raises(ValueError, match="aligned"):
+            fk.inv_spectrum_ola(flat[1:].view(2, 3, fk.YPAD), p["dft_inv_a"], p["dft_inv_b"],
+                                torch.zeros((2, FRAME), device=cuda))
 
     def test_fused_denoise_on_card_matches_cpu(self, cuda, monkeypatch):
         monkeypatch.setenv("CRISPY_FUSED_SPECTRA", "on")
