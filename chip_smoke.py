@@ -10,16 +10,20 @@ Phases, each printed on its own lines; any failure exits non-zero:
   2. kernels against their plain PyTorch versions on the card, at the main
      path's shapes (S=128 streams, F=500 frames), with their times, bounds
      and, where one PyTorch call computes the same function, its time (for
-     the spectra kernels, torch.fft and the bare torch.matmul product);
+     the spectra kernels, torch.fft and the bare torch.matmul product); K1
+     twice: its resident variant on the builtin weights and its f32 variant
+     on the same weights moved off the fp16 grid;
   3. the default (FFT) path: a 2-channel 30 s 48 kHz 16-bit WAV through
      ``denoise_file`` (int16 wire) and the same samples through
-     ``denoise_array`` (f32), on the card, held against the port's CPU path;
-     the launch counts of K1-K3 must have risen in this phase, K4-K6's must
-     stay at zero;
+     ``denoise_array`` (f32), on the card, held against the port's CPU path,
+     and its first 4 s against the port's copy of the NumPy oracle; the
+     launch counts of K1 (resident) to K3 must have risen in this phase,
+     K4-K6's and the f32 K1's must stay at zero;
   4. the fused-spectra path (``CRISPY_FUSED_SPECTRA=on``): the same WAV and
      samples through the same entry points, held against the port's CPU
-     fused path on the first two blocks (10 s) and the card's FFT path on
-     all of it; all six launch counts must rise;
+     fused path on the first two blocks (10 s), the card's FFT path on all
+     of it and the oracle on its first 4 s; all six kernels' launch counts
+     must rise, the f32 K1's stay at zero;
   5. throughput: ``denoise_batch`` at S=128, F=500 on the card, 20 blocks
      per stream, timed in 3 calls (median and spread), and the block step
      of each spectra path by CUDA events.
@@ -59,6 +63,7 @@ SPEC_TOL = 1e-5  # K4-K6, x max|plain|: f32 sums of 960-2048 terms in another or
 EX_RTOL = 1e-4  # K4, K5 band energies, relative
 SPEC_SCALE = 9000.0  # input scale of the JAX package's own K4-K6 tests
 F32_TOL = 1.5e-4  # the JAX package's own oracle tolerance
+ORACLE_SECONDS = 4  # audio held against the NumPy oracle in phases 3 and 4
 I16_TOL = 1  # LSB
 
 
@@ -88,6 +93,14 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def sm_clock_mhz() -> float:
+    """The card's highest SM clock (nvidia-smi clocks.max.sm)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60).stdout
+    return float(out.strip().splitlines()[0])
 
 
 def bound(nbytes: float, flops: float):
@@ -217,34 +230,52 @@ def kernel_phase(torch, pipeline, rk, ok, fk, params, dev):
     f32 = np.float32
     rows = []
 
-    # K1: the GRU network scan.
+    # K1: the GRU network scan, the resident variant on the model's weights
+    # (on the fp16 grid) and the f32 variant on the same weights moved off it.
     feats = torch.from_numpy(rng.standard_normal((S, F, 42)).astype(f32)).to(dev)
     silence = torch.from_numpy(rng.random((S, F)) < 0.2).to(dev)
     state = pipeline.init_state(S, dev)
     for k in ("gru_vad", "gru_noise", "gru_denoise", "lastg"):
         state[k] = torch.from_numpy(rng.random(tuple(state[k].shape)).astype(f32)).to(dev)
-    (a1, a2, a3), sa = rk.nn_scan(params, state, feats, silence)
-    (b1, b2, b3), sb = rk.nn_scan_reference(params, state, feats, silence)
-    torch.cuda.synchronize()
-    err = max(float((x - y).abs().max()) for x, y in
-              [(a1, b1), (a2, b2), (a3, b3)] + [(sa[k], sb[k]) for k in sa])
-    ms = cuda_ms(lambda: rk.nn_scan(params, state, feats, silence), 10)
-    plain_ms = cuda_ms(lambda: rk.nn_scan_reference(params, state, feats, silence), 1, 0)
-    macs = sum(params[k].numel() for k in rk._NN_WEIGHTS
-               if k.endswith(".w") or k.endswith(".u"))
+    off_grid = dict(params)
+    for k in rk._MATRICES:
+        move = rng.uniform(-1e-3, 1e-3, tuple(params[k].shape)).astype(f32)
+        off_grid[k] = (params[k] + torch.from_numpy(move).to(dev)).contiguous()
+    if not rk.exact_in_half(params) or rk.exact_in_half(off_grid):
+        fail("K1: the builtin weights must be exact in fp16 and the moved ones not")
+    macs = sum(params[k].numel() for k in rk._MATRICES)
     nbytes = (feats.numel() * 4 + silence.numel() + 2 * S * rk._STATE * 4
               + sum(params[k].numel() * 4 for k in rk._NN_WEIGHTS)
-              + (a1.numel() + a2.numel() + a3.numel()) * 4)
+              + S * F * (2 * rk.NB + 1) * 4)
     b_ms, b_by = bound(nbytes, 2.0 * macs * S * F)
-    print(f"K1 nn_scan: max|kernel-plain|={err:.3e} (tol {K1_TOL}) kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {macs} MACs/frame, "
-          f"{nbytes / 1e6:.1f} MB)")
-    if not err <= K1_TOL:
-        fail(f"K1 differs from its plain version by {err}")
-    rows.append({"name": "nn_scan", "route": "cuda", "source": "crispy_tpu_torch/csrc/nn_scan.cu",
-                 "replaces": "crispy_tpu/dsp/rnnoise/pallas_rnn.py:114", "max_abs_err": err,
-                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                 "library_ms": None})
+    # The resident design's own floor: one SM reads the packed fp16 weights
+    # from shared memory once per frame at 128 bytes per clock.
+    packed_bytes = rk.pack_half_weights(params).numel() * 2
+    mhz = sm_clock_mhz()
+    floor_ms = F * packed_bytes / 128 / (mhz * 1e6) * 1e3
+    floor = (f"; resident design floor {floor_ms:.4f} ms ({packed_bytes} B of fp16 weights "
+             f"per frame at 128 B/clock, {mhz:.0f} MHz)")
+    for name, p, want in (("nn_scan", params, (1, 0)), ("nn_scan_f32", off_grid, (0, 1))):
+        before = (rk.nn_scan.launches, rk.nn_scan.launches_f32)
+        (a1, a2, a3), sa = rk.nn_scan(p, state, feats, silence)
+        ran = (rk.nn_scan.launches - before[0], rk.nn_scan.launches_f32 - before[1])
+        if ran != want:
+            fail(f"{name}: the wrong K1 variant ran ({ran})")
+        (b1, b2, b3), sb = rk.nn_scan_reference(p, state, feats, silence)
+        torch.cuda.synchronize()
+        err = max(float((x - y).abs().max()) for x, y in
+                  [(a1, b1), (a2, b2), (a3, b3)] + [(sa[k], sb[k]) for k in sa])
+        ms = cuda_ms(lambda: rk.nn_scan(p, state, feats, silence), 10)
+        plain_ms = cuda_ms(lambda: rk.nn_scan_reference(p, state, feats, silence), 1, 0)
+        print(f"K1 {name}: max|kernel-plain|={err:.3e} (tol {K1_TOL}) kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {macs} MACs/frame, "
+              f"{nbytes / 1e6:.1f} MB){floor if name == 'nn_scan' else ''}")
+        if not err <= K1_TOL:
+            fail(f"K1 {name} differs from its plain version by {err}")
+        rows.append({"name": name, "route": "cuda", "source": "crispy_tpu_torch/csrc/nn_scan.cu",
+                     "replaces": "crispy_tpu/dsp/rnnoise/pallas_rnn.py:114", "max_abs_err": err,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": None})
 
     # K2: the remove_doubling continuation scan.
     packed_np = np.concatenate([
@@ -362,6 +393,7 @@ def main() -> int:
     from crispy_tpu_torch.device import resolve_device
     from crispy_tpu_torch.dsp.rnnoise import frontend_kernels as fk
     from crispy_tpu_torch.dsp.rnnoise import ops_kernels as ok
+    from crispy_tpu_torch.dsp.rnnoise import oracle
     from crispy_tpu_torch.dsp.rnnoise import pipeline
     from crispy_tpu_torch.dsp.rnnoise import rnn_kernels as rk
     from crispy_tpu_torch.dsp.rnnoise.weights import builtin_model
@@ -398,12 +430,21 @@ def main() -> int:
     stereo = np.stack([speechlike(n, rng, 110.0), speechlike(n, rng, 185.0)], axis=1)
     pcm = (np.clip(stereo, -1.0, 1.0) * 32767.0).astype(np.int16)  # [T, 2]
     audio = pcm.T.astype(np.float32) / 32768.0  # [2, T], the WAV's decoded samples
-    kernels = {"nn_scan": rk.nn_scan, "rd_scan": rk.rd_scan,
-               "pitch_window_gather": ok.pitch_window_gather,
-               "fwd_spectrum_bands": fk.fwd_spectrum_bands,
-               "win_spectrum_bands": fk.win_spectrum_bands,
-               "inv_spectrum_ola": fk.inv_spectrum_ola}
+    # each kernel's launch counter: (wrapper, attribute)
+    kernels = {"nn_scan": (rk.nn_scan, "launches"),
+               "nn_scan_f32": (rk.nn_scan, "launches_f32"),
+               "rd_scan": (rk.rd_scan, "launches"),
+               "pitch_window_gather": (ok.pitch_window_gather, "launches"),
+               "fwd_spectrum_bands": (fk.fwd_spectrum_bands, "launches"),
+               "win_spectrum_bands": (fk.win_spectrum_bands, "launches"),
+               "inv_spectrum_ola": (fk.inv_spectrum_ola, "launches")}
     fused_only = ("fwd_spectrum_bands", "win_spectrum_bands", "inv_spectrum_ola")
+    never = ("nn_scan_f32",)  # the builtin weights are on the fp16 grid
+    n_oracle = ORACLE_SECONDS * sr
+    t0 = time.perf_counter()
+    oracle_out = np.stack([oracle.denoise_stream(a, model) for a in audio[:, :n_oracle]])
+    print(f"[3] the port's NumPy oracle on the first {ORACLE_SECONDS} s of both channels "
+          f"({time.perf_counter() - t0:.1f} s)")
 
     def entry_points(tag: str, tmp: Path, ref_blocks=None):
         """denoise_file and denoise_array on the card, held against the CPU
@@ -411,14 +452,14 @@ def main() -> int:
         to a block boundary depends on nothing after it); returns the f32
         output and the launch counts of this run."""
         src, dst = tmp / "in.wav", tmp / f"out_{tag}.wav"
-        for k in kernels.values():
-            k.launches = 0
+        for k, attr in kernels.values():
+            setattr(k, attr, 0)
         t0 = time.perf_counter()
         info = denoiser.denoise_file(src, dst, model=model)  # default device: the card
         out_f32 = denoiser.denoise_array(audio, model=model, params=params)
         torch.cuda.synchronize()
         t_gpu = time.perf_counter() - t0
-        launches = {name: k.launches for name, k in kernels.items()}
+        launches = {name: getattr(k, attr) for name, (k, attr) in kernels.items()}
         out16, _ = wavio.read_wav(dst)
         out16 = np.round(out16.T * 32768.0).astype(np.int32)  # exact: 16-bit PCM back
         print(f"[{tag}] denoise_file + denoise_array on the card: {info}, {t_gpu:.2f} s; "
@@ -443,6 +484,12 @@ def main() -> int:
             fail(f"[{tag}] f32 path differs from the CPU path by {f32_err}")
         if not i16_err <= I16_TOL:
             fail(f"[{tag}] int16 path differs from the CPU path by {i16_err} LSB")
+        card = denoiser.denoise_array(audio[:, :n_oracle], model=model, params=params)
+        o_err = float(np.abs(card - oracle_out).max())
+        print(f"[{tag}] denoise_array on the card vs the port's oracle on the first "
+              f"{ORACLE_SECONDS} s: f32 max|diff|={o_err:.3e} (tol {F32_TOL})")
+        if not o_err <= F32_TOL:
+            fail(f"[{tag}] the card differs from the oracle by {o_err}")
         return out_f32, launches
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -450,7 +497,7 @@ def main() -> int:
         with spectra_path("off"):
             out_fft, launches = entry_points("3", Path(tmp))
         for name, c in launches.items():
-            if (c > 0) == (name in fused_only):
+            if (c > 0) == (name in fused_only or name in never):
                 fail(f"kernel {name}: {c} launches on the default path")
         with torch.no_grad():
             p_gpu = pitch_track(torch, pipeline, params, audio, dev)
@@ -463,8 +510,8 @@ def main() -> int:
         with spectra_path("on"):
             out_fused, launches_fused = entry_points("4", Path(tmp), ref_blocks=2)
         for name, c in launches_fused.items():
-            if c <= 0:
-                fail(f"kernel {name} was not launched on the fused-spectra path")
+            if (c <= 0) != (name in never):
+                fail(f"kernel {name}: {c} launches on the fused-spectra path")
         fft_err = float(np.abs(out_fused - out_fft).max())
         print(f"[4] fused vs the card's FFT path: f32 max|diff|={fft_err:.3e} (tol {F32_TOL})")
         if not fft_err <= F32_TOL:

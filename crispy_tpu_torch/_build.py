@@ -41,7 +41,8 @@ _I = ctypes.c_int
 # argtypes of each exported launcher: pointers and the stream as c_void_p,
 # sizes and the device index as c_int.
 _SIGNATURES = {
-    "crispy_nn_scan": [_P] * 23 + [_I, _I, _I, _P],
+    "crispy_nn_scan_f32": [_P] * 23 + [_I, _I, _I, _P],
+    "crispy_nn_scan_resident": [_P] * 15 + [_I, _I, _I, _I, _P],
     "crispy_rd_scan": [_P] * 6 + [_I, _I, _I, _P],
     "crispy_pitch_gather": [_P] * 3 + [_I, _I, _I, _I, _P],
     "crispy_spectrum_bands": [_P, _I, _I, _I, _I] + [_P] * 5 + [_I, _P],

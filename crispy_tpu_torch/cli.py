@@ -1,6 +1,7 @@
 """Command line of the PyTorch/CUDA port.
 
-  python -m crispy_tpu_torch.cli denoise IN.wav OUT.wav   RNNoise on the card
+  python -m crispy_tpu_torch.cli denoise IN.wav OUT.wav [--ns-model rnnoise]
+                                                          RNNoise on the card
   python -m crispy_tpu_torch.cli bench [--streams N]      denoise throughput
 
 ``CRISPY_FUSED_SPECTRA=on`` runs either through the fused-spectra kernels
@@ -23,6 +24,8 @@ def _cmd_denoise(args) -> int:
     from .dsp.rnnoise.weights import RNNoiseModel
     from .engine.denoiser import denoise_file
 
+    if args.ns_model != "rnnoise":
+        return _legacy_denoise(args)
     model = RNNoiseModel.load(args.weights) if args.weights else None
     t0 = time.perf_counter()
     info = denoise_file(args.input, args.output, model=model, device=args.device)
@@ -33,6 +36,23 @@ def _cmd_denoise(args) -> int:
         "seconds_audio": audio_s, "seconds_wall": dt,
         "realtime_factor": audio_s * info["channels"] / max(dt, 1e-9),
     }))
+    return 0
+
+
+def _legacy_denoise(args) -> int:
+    """The legacy models on the host, as the JAX package's CLI runs them on
+    files: ``dummy`` copies the input, ``noisy`` adds the LCG noise x 0.05."""
+    import numpy as np
+
+    from .engine.denoiser import _Lcg
+    from .io import wav as wavio
+
+    audio, sr = wavio.read_wav(args.input)
+    if args.ns_model == "noisy":
+        noise = _Lcg().next_block(audio.shape[0]).astype(np.float32)
+        audio = audio + noise[:, None] * 0.05
+    wavio.write_wav(args.output, audio, sr)
+    print(json.dumps({"output": str(args.output), "ns_model": args.ns_model}))
     return 0
 
 
@@ -120,6 +140,8 @@ def main(argv=None) -> int:
     d = sub.add_parser("denoise", help="RNNoise noise suppression on a WAV file")
     d.add_argument("input", type=Path)
     d.add_argument("output", type=Path)
+    d.add_argument("--ns-model", default="rnnoise", choices=["dummy", "noisy", "rnnoise"],
+                   help="dummy: copy; noisy: add LCG noise (both on the host)")
     d.add_argument("--weights", type=Path, default=None, help="rnnoise .npz weights")
     d.add_argument("--device", default=None, help="default: cuda")
     d.set_defaults(fn=_cmd_denoise)

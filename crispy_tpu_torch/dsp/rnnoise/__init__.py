@@ -7,6 +7,8 @@
                   continuation scan (K2), each with its plain version
   ops_kernels   — the pitch-window gather (K3) and the remove_doubling
                   candidate gather
+  oracle        — the NumPy oracle of the frame chain (a copy of the JAX
+                  package's)
 """
 
 from .constants import FRAME_SIZE, NB_BANDS, NB_FEATURES  # noqa: F401

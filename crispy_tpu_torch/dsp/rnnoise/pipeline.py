@@ -432,8 +432,10 @@ def _pitch_index(params, state, ext: torch.Tensor, F: int):
 def _use_fused_spectra() -> bool:
     """The fused-spectra path (K4-K6) instead of the FFT path, with
     ``CRISPY_FUSED_SPECTRA=on``, the JAX package's own switch; read at each
-    call. Off by default: on the H100 the dense 960-point DFT products are
-    slower than the FFTs (``PERF.md``)."""
+    call. Off by default, as in the JAX package. K4-K6 are FFTs since they
+    were redesigned, and on the one cell measured so far (S=128 streams,
+    F=500 frames on the H100) the fused path's block step is the faster
+    one (``PERF.md``); which path stays waits on benchmark cells."""
     return os.environ.get("CRISPY_FUSED_SPECTRA", "off") == "on"
 
 

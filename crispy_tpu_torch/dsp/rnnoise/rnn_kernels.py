@@ -5,6 +5,11 @@ Each wrapper takes its plain PyTorch version for tensors on the CPU and
 launches its CUDA kernel (``csrc/nn_scan.cu``, ``csrc/rd_scan.cu``) for
 tensors on the card, or raises; it never falls back. ``<wrapper>.launches``
 counts the kernel launches, so a run can show it went through the kernel.
+
+K1 has two variants, chosen from the weights, not on failure: the resident
+one (weights in shared memory as fp16, counted in ``nn_scan.launches``) when
+every weight is exact in fp16, as on the int8/256 grid of every RNNoise
+model, and the f32 one (``nn_scan.launches_f32``) for any other weights.
 """
 
 from __future__ import annotations
@@ -31,6 +36,35 @@ _NN_WEIGHTS = (
     "vad_output.w", "vad_output.b",
     "tansig_table",
 )
+
+
+# The resident K1's packed weights: (key, input rows, output columns, G lanes
+# per column), in the order of the W_* offsets in csrc/nn_scan.cu.
+_SEGMENTS = (
+    ("input_dense.w", (0, 42), (0, 24), 2),
+    ("vad_gru.u", (0, 24), (0, 48), 1),
+    ("denoise_output.w", (0, 96), (0, 22), 4),
+    ("noise_gru.u", (0, 48), (0, 96), 2),
+    ("denoise_gru.w", (72, 114), (0, 96), 2),
+    ("vad_gru.w", (0, 24), (0, 72), 1),
+    ("noise_gru.w", (0, 24), (0, 144), 1),
+    ("noise_gru.w", (48, 90), (0, 144), 2),
+    ("vad_gru.u", (0, 24), (48, 72), 1),
+    ("denoise_gru.u", (0, 96), (0, 96), 4),
+    ("denoise_gru.w", (72, 114), (96, 192), 2),
+    ("noise_gru.w", (24, 48), (0, 144), 1),
+    ("vad_output.w", (0, 24), (0, 1), 1),
+    ("denoise_gru.w", (0, 24), (0, 288), 1),
+    ("noise_gru.u", (0, 48), (96, 144), 2),
+    ("denoise_gru.u", (0, 96), (96, 192), 4),
+    ("denoise_gru.w", (72, 114), (192, 288), 2),
+    ("denoise_gru.w", (24, 72), (0, 288), 2),
+    ("denoise_gru.u", (0, 96), (192, 288), 4),
+)
+_STEPS = 12  # (even, odd) row pairs a lane multiplies per tile
+_RUNS = 3  # runs of 4 pairs, one 16-byte word each
+_MATRICES = tuple(k for k in _NN_WEIGHTS if k.endswith((".w", ".u")))
+_BIASES = tuple(k for k in _NN_WEIGHTS if k.endswith(".b"))
 
 
 def _on_card(*tensors: torch.Tensor) -> bool:
@@ -117,9 +151,56 @@ def nn_scan_reference(params, state, feats: torch.Tensor, silence: torch.Tensor)
     return outs, {"gru_vad": vad_s, "gru_noise": noi_s, "gru_denoise": den_s, "lastg": lastg}
 
 
+def exact_in_half(params) -> bool:
+    """True when every weight matrix of K1 holds only values that fp16
+    represents exactly (``w.to(float16).float() == w`` everywhere)."""
+    return all(bool((params[k].to(torch.float16).float() == params[k]).all())
+               for k in _MATRICES)
+
+
+def pack_half_weights(params) -> torch.Tensor:
+    """The resident K1's weights as one fp16 vector of (even, odd) input-row
+    pairs, segment by segment (``_SEGMENTS``), each warp tile in the order its
+    lanes read it: a tile is 3 runs x 32 lanes of 16-byte words; the word of
+    (run, lane), lane = cg * G + g, holds the pairs p = (run * G + g) * 4 + i,
+    i < 4 (rows 2p, 2p + 1), of column tile * (32 / G) + cg. Pairs and
+    columns past the segment's edge are 0. Only for weights that
+    ``exact_in_half`` accepts: the cast is exact."""
+    parts = []
+    for key, (r0, r1), (c0, c1), G in _SEGMENTS:
+        m = params[key][r0:r1, c0:c1]
+        cpt = 32 // G
+        ntiles = -(-(c1 - c0) // cpt)
+        if (r1 - r0) > 2 * _STEPS * G:
+            raise ValueError(f"segment {key}[{r0}:{r1}] needs more than {_STEPS} pairs a lane")
+        pad = torch.zeros((2 * _STEPS * G, ntiles * cpt), dtype=m.dtype, device=m.device)
+        pad[: r1 - r0, : c1 - c0] = m
+        # rows (run, g, pair in run, half), columns (tile, cg)
+        # -> (tile, run, cg, g, pair in run, half)
+        tiles = pad.reshape(_RUNS, G, 4, 2, ntiles, cpt).permute(4, 0, 5, 1, 2, 3)
+        parts.append(tiles.reshape(-1))
+    return torch.cat(parts).to(torch.float16).contiguous()
+
+
+_HALF_WEIGHTS = {}  # (device, (id, version) of each matrix) -> (matrices, packed or None)
+
+
+def _half_weights(params):
+    """pack_half_weights(params), or None when the weights are not exact in
+    fp16; computed once per parameter set and device."""
+    mats = [params[k] for k in _MATRICES]
+    key = (mats[0].device, tuple((id(m), m._version) for m in mats))
+    if key not in _HALF_WEIGHTS:
+        for k in [k for k in _HALF_WEIGHTS if k[0] == key[0]]:
+            del _HALF_WEIGHTS[k]  # one parameter set per device at a time
+        _HALF_WEIGHTS[key] = (mats, pack_half_weights(params) if exact_in_half(params) else None)
+    return _HALF_WEIGHTS[key][1]
+
+
 def nn_scan(params, state, feats: torch.Tensor, silence: torch.Tensor):
     """K1, the counterpart of ``pallas_rnn.nn_scan_pallas``: same inputs and
-    outputs as ``nn_scan_reference``."""
+    outputs as ``nn_scan_reference``. On the card it launches the resident
+    variant when the weights are exact in fp16, else the f32 variant."""
     st_keys = ("gru_vad", "gru_noise", "gru_denoise", "lastg")
     weights = [params[k] for k in _NN_WEIGHTS]
     if not _on_card(feats, silence, *[state[k] for k in st_keys], *weights):
@@ -140,18 +221,27 @@ def nn_scan(params, state, feats: torch.Tensor, silence: torch.Tensor):
     vad = torch.empty((S, F), dtype=torch.float32, device=dev)
     st_out = torch.empty((S, _STATE), dtype=torch.float32, device=dev)
     lib = _build.load()
-    rc = lib.crispy_nn_scan(
-        feats.data_ptr(), silence.data_ptr(), st_in.data_ptr(), graw.data_ptr(),
-        gs.data_ptr(), vad.data_ptr(), st_out.data_ptr(), *[w.data_ptr() for w in weights],
-        S, F, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, "nn_scan")
-    nn_scan.launches += 1
+    outs = (feats.data_ptr(), silence.data_ptr(), st_in.data_ptr(), graw.data_ptr(),
+            gs.data_ptr(), vad.data_ptr(), st_out.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    packed = _half_weights(params)
+    if packed is not None:
+        rc = lib.crispy_nn_scan_resident(
+            *outs, packed.data_ptr(), *[params[k].data_ptr() for k in _BIASES],
+            params["tansig_table"].data_ptr(), packed.numel() // 2, S, F, dev.index, stream)
+        _build.check(rc, "nn_scan (resident)")
+        nn_scan.launches += 1
+    else:
+        rc = lib.crispy_nn_scan_f32(*outs, *[w.data_ptr() for w in weights], S, F,
+                                    dev.index, stream)
+        _build.check(rc, "nn_scan (f32)")
+        nn_scan.launches_f32 += 1
     splits = torch.split(st_out, [_VAD, _NOI, _DEN, NB], dim=-1)
     return (graw, gs, vad), dict(zip(st_keys, splits))
 
 
-nn_scan.launches = 0
+nn_scan.launches = 0  # the resident variant
+nn_scan.launches_f32 = 0
 
 
 # ---------------------------------------------------------------------------

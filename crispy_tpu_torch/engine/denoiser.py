@@ -5,7 +5,8 @@ surface of ``crispy_tpu/engine/denoiser.py``).
 streams, through ``pipeline.denoise_batch`` in fixed blocks. They take
 ``device=None``, which means the CUDA card; with no card they raise. The
 streaming processors of the JAX package (``RnnNoiseProcessor``, ``NsState``,
-``LegacyProcessor``) belong to later slices of the port.
+``LegacyProcessor``) belong to later slices of the port; ``_Lcg``, the legacy
+models' noise source, is copied for the CLI's ``--ns-model noisy``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,47 @@ from ..dsp.rnnoise import pipeline
 from ..dsp.rnnoise.constants import FRAME_SIZE as FRAME
 from ..dsp.rnnoise.weights import RNNoiseModel
 from ..io import wav as wavio
+
+class _Lcg:
+    """The legacy models' 32-bit LCG noise source (audio.rs:157-163)."""
+
+    A = 1_664_525
+    C = 1_013_904_223
+    M = 1 << 32
+
+    def __init__(self, seed: int = 0x1234_ABCD):
+        self.state = np.uint32(seed)
+        self._jump_n = 0
+        self._a_pow = None
+        self._c_geo = None
+
+    def next_noise(self) -> float:
+        self.state = np.uint32(
+            (np.uint64(self.state) * np.uint64(self.A) + np.uint64(self.C))
+            & np.uint64(0xFFFFFFFF)
+        )
+        return (float(self.state) / float(0xFFFFFFFF)) * 2.0 - 1.0
+
+    def next_block(self, n: int) -> np.ndarray:
+        """n sequential draws, vectorized via the closed form
+        state_j = a^j s0 + c (a^{j-1} + ... + 1)  (mod 2^32) — bit-identical
+        to n next_noise() calls, no per-sample Python loop."""
+        if n <= 0:
+            return np.zeros(0, np.float32)
+        if self._jump_n != n:
+            a_pow = np.empty(n, np.uint64)
+            c_geo = np.empty(n, np.uint64)
+            ap, geo = 1, 0
+            for j in range(n):
+                geo = (geo * self.A + 1) % self.M  # a^j + .. + 1 after j+1 steps
+                ap = (ap * self.A) % self.M
+                a_pow[j] = ap
+                c_geo[j] = geo
+            self._jump_n, self._a_pow, self._c_geo = n, a_pow, c_geo
+        s0 = np.uint64(self.state)
+        states = (self._a_pow * s0 + np.uint64(self.C) * self._c_geo) & np.uint64(0xFFFFFFFF)
+        self.state = np.uint32(states[-1])
+        return states.astype(np.float64) / float(0xFFFFFFFF) * 2.0 - 1.0  # f64
 
 
 def denoise_array(

@@ -130,6 +130,32 @@ class TestCli:
         rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
         assert rec["device"] == "cpu" and rec["value"] > 0
 
+    @needs_jax
+    @pytest.mark.parametrize("ns_model", ["dummy", "noisy"])
+    def test_legacy_ns_model_bytes_equal_jax_cli(self, tmp_path, capsys, ns_model):
+        """--ns-model dummy|noisy writes the same bytes as the JAX package's
+        CLI on one WAV (both run on the host)."""
+        from crispy_tpu import cli as jcli
+
+        src = tmp_path / "in.wav"
+        twav.write_wav(src, stereo_pcm(5 * FRAME + 31, 48000), 48000)
+        port, ref = tmp_path / "port.wav", tmp_path / "jax.wav"
+        assert cli.main(["denoise", str(src), str(port), "--ns-model", ns_model]) == 0
+        assert jcli.main(["denoise", str(src), str(ref), "--ns-model", ns_model]) == 0
+        lines = capsys.readouterr().out.strip().splitlines()
+        assert json.loads(lines[-2]) == {"output": str(port), "ns_model": ns_model}
+        assert port.read_bytes() == ref.read_bytes()
+        if ns_model == "noisy":
+            assert port.read_bytes() != src.read_bytes()
+
+    def test_lcg_block_equals_sequential_draws(self):
+        """The port's copy of _Lcg: next_block(n) gives the bits of n
+        next_noise() calls and leaves the same state."""
+        a, b = tden._Lcg(), tden._Lcg()
+        seq = np.array([a.next_noise() for _ in range(257)])
+        np.testing.assert_array_equal(b.next_block(257), seq)
+        assert a.state == b.state
+
 
 def _imported_modules(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))

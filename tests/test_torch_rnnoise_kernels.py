@@ -68,6 +68,43 @@ def nn_inputs(seed=11, S=3, F=9):
     return feats, sil, state
 
 
+def off_grid(params, seed=19):
+    """The same parameters with every weight matrix moved off the fp16 grid
+    by up to 1e-3 (as an npz of arbitrary f32 weights may be)."""
+    rng = np.random.default_rng(seed)
+    out = dict(params)
+    for k in rk._MATRICES:
+        w = params[k]
+        d = torch.from_numpy(rng.uniform(-1e-3, 1e-3, tuple(w.shape)).astype(np.float32))
+        out[k] = (w + d.to(w.device)).contiguous()
+    return out
+
+
+def max_diff(xs, ys):
+    return max(float((x.double() - y.double()).abs().max()) for x, y in zip(xs, ys))
+
+
+def float64_reference(params, state, feats, silence, monkeypatch):
+    """nn_scan_reference run in float64 (tansig without its f32 cast), as
+    the list of outputs then states."""
+    def tansig64(table, x):
+        ax = torch.abs(x)
+        fi = torch.clamp(torch.floor(0.5 + 25.0 * torch.nan_to_num(ax)), 0.0, 200.0)
+        dx = ax - 0.04 * fi
+        y = table[fi.to(torch.int64)]
+        y = y + dx * (1.0 - y * y) * (1.0 - y * dx)
+        out = torch.where(x < 0, -y, y)
+        out = torch.where(x >= 8.0, 1.0, torch.where(x <= -8.0, -1.0, out))
+        return torch.where(torch.isnan(x), 0.0, out)
+
+    monkeypatch.setattr(rk, "_tansig", tansig64)
+    p64 = {k: v.double() if v.dtype == torch.float32 else v for k, v in params.items()}
+    outs, st = rk.nn_scan_reference(p64, {k: v.double() for k, v in state.items()},
+                                    feats.double(), silence)
+    monkeypatch.undo()
+    return list(outs) + list(st.values())
+
+
 def rd_inputs(seed=3, S=3, F=11):
     rng = np.random.default_rng(seed)
     packed = np.concatenate([
@@ -148,6 +185,130 @@ class TestNnScan:
             torch.testing.assert_close(x, y, atol=1e-5, rtol=0)
         for k in st_a:
             torch.testing.assert_close(st_a[k], st_b[k], atol=1e-5, rtol=0)
+
+    @pytest.mark.gpu
+    @pytest.mark.parametrize("S", [1, 8, 128, 256])
+    @pytest.mark.parametrize("F", [1, 7, 500])
+    def test_both_variants_match_plain_on_card(self, cuda, S, F, monkeypatch):
+        """The resident variant on the builtin weights and the f32 variant on
+        off-grid weights, against the plain version at 1e-5, with silence
+        all on, all off and random; each launch counts in its own counter.
+
+        Over 500 frames of N(0, 1) features the GRU states grow large, and
+        the f32 plain version itself can then lie farther than 1e-5 from the
+        same recurrence run in float64. Where a kernel is more than 1e-5
+        from the plain version, it must be no farther from the float64 run
+        than the plain version is."""
+        feats, _, state = nn_inputs(seed=S + F, S=S, F=F)
+        rng = np.random.default_rng(S * F)
+        grid = tp.make_params(tw.builtin_model(), cuda)
+        cases = (("resident", grid), ("f32", off_grid(grid)))
+        f = t(feats).to(cuda)
+        tstate = {k: t(v).to(cuda) for k, v in state.items()}
+        for sil in (np.ones((S, F), bool), np.zeros((S, F), bool), rng.random((S, F)) < 0.3):
+            s = t(sil).to(cuda)
+            for variant, params in cases:
+                counts = (rk.nn_scan.launches, rk.nn_scan.launches_f32)
+                a, st_a = rk.nn_scan(params, tstate, f, s)
+                want = (counts[0] + 1, counts[1]) if variant == "resident" else \
+                    (counts[0], counts[1] + 1)
+                assert (rk.nn_scan.launches, rk.nn_scan.launches_f32) == want
+                b, st_b = rk.nn_scan_reference(params, tstate, f, s)
+                got, plain = list(a) + list(st_a.values()), list(b) + list(st_b.values())
+                if max_diff(got, plain) > 1e-5:
+                    exact = float64_reference(params, tstate, f, s, monkeypatch)
+                    assert max_diff(got, exact) <= max_diff(plain, exact), variant
+                if sil.all():
+                    assert not a[2].any()
+                    for k in st_a:
+                        assert torch.equal(st_a[k], tstate[k])
+
+    @pytest.mark.gpu
+    @pytest.mark.parametrize("variant", ["resident", "f32"])
+    def test_nan_row_and_repeat_launch_on_card(self, cuda, variant):
+        """A NaN feature row gives the plain version's NaNs and numbers, and
+        a second launch on the same inputs gives the same bits."""
+        feats, sil, state = nn_inputs(seed=13, S=9, F=30)
+        feats[2, 11] = np.nan
+        feats[5, 0, 7] = np.nan
+        params = tp.make_params(tw.builtin_model(), cuda)
+        if variant == "f32":
+            params = off_grid(params)
+        f, s = t(feats).to(cuda), t(sil).to(cuda)
+        tstate = {k: t(v).to(cuda) for k, v in state.items()}
+        a, st_a = rk.nn_scan(params, tstate, f, s)
+        a2, st_a2 = rk.nn_scan(params, tstate, f, s)
+        b, st_b = rk.nn_scan_reference(params, tstate, f, s)
+        for x, y in list(zip(a, b)) + [(st_a[k], st_b[k]) for k in st_a]:
+            torch.testing.assert_close(x, y, atol=1e-5, rtol=0, equal_nan=True)
+        for x, y in list(zip(a, a2)) + [(st_a[k], st_a2[k]) for k in st_a]:
+            assert torch.equal(torch.nan_to_num(x, nan=7.0), torch.nan_to_num(y, nan=7.0))
+        assert torch.isnan(st_a["gru_noise"][2]).all() or bool(sil[2, 11])
+
+    # -- the resident variant's fp16 weights (plain functions, on the CPU) --
+
+    @pytest.mark.parametrize("which", ["builtin", "deterministic"])
+    def test_grid_weights_exact_in_half(self, which):
+        model = tw.builtin_model() if which == "builtin" else tw.deterministic_test_model()
+        params = tp.make_params(model, "cpu")
+        assert rk.exact_in_half(params)
+        packed = rk.pack_half_weights(params)
+        assert packed.dtype == torch.float16 and packed.numel() == 2 * 46464
+        n_weights = sum(params[k].numel() for k in rk._MATRICES)
+        assert int((packed != 0).sum()) == int(sum((params[k] != 0).sum() for k in rk._MATRICES))
+        assert n_weights == 86952
+
+    @pytest.mark.parametrize("key", ["input_dense.w", "vad_gru.u", "noise_gru.w",
+                                     "denoise_gru.u", "denoise_output.w", "vad_output.w"])
+    def test_one_moved_weight_is_rejected(self, tparams, key):
+        params = dict(tparams)
+        w = params[key].clone()
+        w.view(-1)[w.numel() // 2] += 1e-3
+        params[key] = w
+        assert rk.exact_in_half(tparams) and not rk.exact_in_half(params)
+
+    def test_segments_cover_each_weight_once(self, tparams):
+        for key in rk._MATRICES:
+            hit = np.zeros(tuple(tparams[key].shape), int)
+            for k, (r0, r1), (c0, c1), _ in rk._SEGMENTS:
+                if k == key:
+                    hit[r0:r1, c0:c1] += 1
+            assert (hit == 1).all(), key
+
+    def test_packed_layout_is_what_the_lanes_read(self, tparams):
+        """Read the packed vector as the kernel's lanes do (16-byte word
+        (tile * 3 + run) * 32 + lane holds, for column tile * 32/G + lane // G,
+        the pairs p = (run * G + lane % G) * 4 + i, i < 4, of rows 2p and
+        2p + 1) and sum: each segment's product equals act @ M on its slice."""
+        rng = np.random.default_rng(17)
+        words = rk.pack_half_weights(tparams).float().numpy().reshape(-1, 2)
+        off = 0
+        for key, (r0, r1), (c0, c1), G in rk._SEGMENTS:
+            m = tparams[key][r0:r1, c0:c1].numpy()
+            act = np.zeros(2 * rk._STEPS * G)
+            act[: r1 - r0] = rng.standard_normal(r1 - r0)
+            cpt = 32 // G
+            ntiles = -(-(c1 - c0) // cpt)
+            idx = np.arange(ntiles * rk._STEPS * 32)  # one (fp16, fp16) pair each
+            word, i = idx // 4, idx % 4
+            tile, run, lane = word // (3 * 32), (word // 32) % 3, word % 32
+            col, pair = tile * cpt + lane // G, (run * G + lane % G) * 4 + i
+            w = words[off: off + idx.size]
+            got = np.zeros(ntiles * cpt)
+            np.add.at(got, col, act[2 * pair] * w[:, 0] + act[2 * pair + 1] * w[:, 1])
+            np.testing.assert_allclose(got[: c1 - c0], act[: r1 - r0] @ m, atol=1e-12)
+            assert not got[c1 - c0:].any()
+            off += idx.size
+        assert off == words.shape[0]
+
+    def test_half_weights_cached_per_parameter_set(self, tparams):
+        params = dict(tparams)
+        a = rk._half_weights(params)
+        assert a is not None and rk._half_weights(params) is a
+        params["vad_gru.w"] = params["vad_gru.w"] + 1e-3  # another parameter set
+        assert rk._half_weights(params) is None
+        params["vad_gru.w"].copy_(tparams["vad_gru.w"])  # changed in place
+        assert torch.equal(rk._half_weights(params), a)
 
 
 # ---------------------------------------------------------------------------
