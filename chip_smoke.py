@@ -12,7 +12,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
      and, where one PyTorch call computes the same function, its time (for
      the spectra kernels, torch.fft and the bare torch.matmul product); K1
      twice: its resident variant on the builtin weights and its f32 variant
-     on the same weights moved off the fp16 grid;
+     on the same weights moved off the fp16 grid; K2 bit-exact on random
+     rows and on rows heavy in continuations, with its own device time
+     (torch.profiler) beside its design floor;
   3. the default (FFT) path: a 2-channel 30 s 48 kHz 16-bit WAV through
      ``denoise_file`` (int16 wire) and the same samples through
      ``denoise_array`` (f32), on the card, held against the port's CPU path,
@@ -58,6 +60,11 @@ THROUGHPUT_RUNS = 3
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 
+# K2's design floor per frame, counted from the dependent chain in
+# csrc/rd_scan.cu: 7 ALU operations at ~4 clocks, a ballot and a shuffle at
+# ~25 clocks each.
+RD_CHAIN_CLOCKS = 7 * 4 + 25 + 25
+
 K1_TOL = 1e-5  # f32 sums in another order than cuBLAS, over a 500-frame recurrence
 SPEC_TOL = 1e-5  # K4-K6, x max|plain|: f32 sums of 960-2048 terms in another order
 EX_RTOL = 1e-4  # K4, K5 band energies, relative
@@ -93,6 +100,27 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def device_ms(fn, iters: int, kernel: str) -> float:
+    """Mean device time of the kernel whose name holds ``kernel``, per launch,
+    over iters calls of fn() by torch.profiler: the kernel's own time, with
+    no host gaps between launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type.name == "CUDA" and kernel in e.key]
+    n = sum(e.count for e in evs)
+    if n != iters:
+        fail(f"the profile holds {n} launches of {kernel}, not {iters}")
+    return sum(e.self_device_time_total for e in evs) / 1e3 / n
 
 
 def sm_clock_mhz() -> float:
@@ -225,6 +253,8 @@ def spectra_rows(torch, pipeline, fk, params, dev, rng):
 
 def kernel_phase(torch, pipeline, rk, ok, fk, params, dev):
     """Phase 2: each kernel against its plain version at S=128, F=500."""
+    from crispy_tpu_torch.dsp.rnnoise import rd_rows
+
     rng = np.random.default_rng(SEED)
     S, F = S_MAIN, F_MAIN
     f32 = np.float32
@@ -277,32 +307,39 @@ def kernel_phase(torch, pipeline, rk, ok, fk, params, dev):
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": None})
 
-    # K2: the remove_doubling continuation scan.
-    packed_np = np.concatenate([
-        rng.integers(20, 380, (S, F, 14)).astype(f32),
-        rng.random((S, F, 14)).astype(f32),
-        (rng.random((S, F, 14)) > 0.3).astype(f32),
-        rng.random((S, F, 1)).astype(f32),
-        rng.integers(30, 384, (S, F, 1)).astype(f32),
-        rng.integers(60, 768, (S, F, 15)).astype(f32),
-        rng.random((S, F, 15)).astype(f32),
-    ], axis=-1)
-    packed = torch.from_numpy(packed_np).to(dev)
-    lp0 = torch.from_numpy(rng.integers(60, 768, S).astype(f32)).to(dev)
-    lg0 = torch.from_numpy(rng.random(S).astype(f32)).to(dev)
-    pa = rk.rd_scan(packed, lp0, lg0)
-    pb = rk.rd_scan_reference(packed, lp0, lg0)
-    torch.cuda.synchronize()
-    err = max(float((x - y).abs().max()) for x, y in zip(pa, pb))
-    ms = cuda_ms(lambda: rk.rd_scan(packed, lp0, lg0), 20)
+    # K2: the remove_doubling continuation scan, bit-exact on random rows and
+    # on rows heavy in continuations, timed on the random ones.
+    rd_cases = {}
+    for kind, (rows_np, lp_np, lg_np) in (("random", rd_rows.random_rows(rng, S, F)),
+                                          ("continuation", rd_rows.continuation_rows(rng, S, F))):
+        args = tuple(torch.from_numpy(x).to(dev) for x in (rows_np, lp_np, lg_np))
+        pa = rk.rd_scan(*args)
+        pb = rk.rd_scan_reference(*args)
+        torch.cuda.synchronize()
+        err = max(float((x - y).abs().max()) for x, y in zip(pa, pb))
+        if err != 0.0 or not all(torch.equal(x, y) for x, y in zip(pa, pb)):
+            fail(f"K2 is not bit-exact on the {kind} rows: {err}")
+        # share of candidates within 2 of the previous frame's half-period
+        prev = torch.cat([args[1][:, None], pb[0][:, :-1]], dim=1)
+        near = (args[0][..., :14] - torch.floor(prev * 0.5)[..., None]).abs() <= 2
+        rd_cases[kind] = (args, err, float(near.float().mean()))
+    packed, lp0, lg0 = rd_cases["random"][0]
+    err = max(e for _, e, _ in rd_cases.values())
+    ms = cuda_ms(lambda: rk.rd_scan(packed, lp0, lg0), 50)
+    dev_ms = device_ms(lambda: rk.rd_scan(packed, lp0, lg0), 50, "rd_scan_kernel")
     plain_ms = cuda_ms(lambda: rk.rd_scan_reference(packed, lp0, lg0), 2, 1)
     nbytes = packed.numel() * 4 + 2 * S * 4 + (S * F + 2 * S) * 4
     flops = 14 * 12 * S * F  # ~12 f32 ops per candidate and frame
     b_ms, b_by = bound(nbytes, flops)
-    print(f"K2 rd_scan: max|kernel-plain|={err:.3e} (bit-exact required) kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}; {nbytes / 1e6:.2f} MB)")
-    if err != 0.0:
-        fail(f"K2 is not bit-exact: {err}")
+    rd_floor_ms = F * RD_CHAIN_CLOCKS / (mhz * 1e6) * 1e3
+    print(f"K2 rd_scan: max|kernel-plain|={err:.3e} (bit-exact required) on random rows and "
+          f"on continuation-heavy rows (candidates within 2 of the previous half-period: "
+          f"{rd_cases['random'][2]:.3f} and {rd_cases['continuation'][2]:.3f}); kernel "
+          f"{ms:.4f} ms (CUDA events over 50 calls), device time {dev_ms:.4f} ms "
+          f"(torch.profiler, {dev_ms * mhz * 1e3 / F:.0f} clocks a frame at {mhz:.0f} MHz), "
+          f"plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}; {nbytes / 1e6:.2f} MB); "
+          f"design floor {rd_floor_ms:.4f} ms ({RD_CHAIN_CLOCKS} clocks of dependent chain "
+          f"per frame, counted, not measured, at {mhz:.0f} MHz)")
     rows.append({"name": "rd_scan", "route": "cuda", "source": "crispy_tpu_torch/csrc/rd_scan.cu",
                  "replaces": "crispy_tpu/dsp/rnnoise/pallas_rnn.py:260", "max_abs_err": err,
                  "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,

@@ -1,6 +1,6 @@
 // The 480-point complex FFT that the spectra kernels (K4 and K5 in
 // spectrum_fwd.cu, K6 in spectrum_inv.cu) run on one warp, and the cp.async
-// copy they stage their inputs with.
+// copy they (and K2 in rd_scan.cu) stage their inputs with.
 //
 // 480 = 15 x 32: lane l holds the inputs l + 32 j, j = 0..14, in registers;
 // a 15-point DFT over j in each lane (prime factor 3 x 5, no inner

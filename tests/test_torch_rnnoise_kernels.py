@@ -16,6 +16,7 @@ import torch
 from crispy_tpu_torch.dsp.rnnoise import constants as TC
 from crispy_tpu_torch.dsp.rnnoise import ops_kernels as ok
 from crispy_tpu_torch.dsp.rnnoise import pipeline as tp
+from crispy_tpu_torch.dsp.rnnoise import rd_rows
 from crispy_tpu_torch.dsp.rnnoise import rnn_kernels as rk
 from crispy_tpu_torch.dsp.rnnoise import weights as tw
 
@@ -106,19 +107,59 @@ def float64_reference(params, state, feats, silence, monkeypatch):
 
 
 def rd_inputs(seed=3, S=3, F=11):
-    rng = np.random.default_rng(seed)
-    packed = np.concatenate([
-        rng.integers(20, 380, (S, F, 14)).astype(np.float32),
-        rng.random((S, F, 14)).astype(np.float32),
-        (rng.random((S, F, 14)) > 0.3).astype(np.float32),
-        rng.random((S, F, 1)).astype(np.float32),
-        rng.integers(30, 384, (S, F, 1)).astype(np.float32),
-        rng.integers(60, 768, (S, F, 15)).astype(np.float32),
-        rng.random((S, F, 15)).astype(np.float32),
-    ], axis=-1)
-    lp0 = rng.integers(60, 768, S).astype(np.float32)
-    lg0 = rng.random(S).astype(np.float32)
+    return rd_rows.random_rows(np.random.default_rng(seed), S, F)
+
+
+def continuation_rows(seed=10, S=3, F=40):
+    """K2 rows heavy in continuations and exact ties (rd_rows.continuation_rows)."""
+    return rd_rows.continuation_rows(np.random.default_rng(seed), S, F)
+
+
+def with_nans(packed, lp0, lg0):
+    """Copies with NaN in some g0, g1, output periods and pitch gains (so
+    NaN carries also arise inside the scan) and in both carries (S >= 4)."""
+    packed, lp0, lg0 = packed.copy(), lp0.copy(), lg0.copy()
+    packed[0, 2, 42] = np.nan  # g0
+    packed[1, 1, 14:20] = np.nan  # g1
+    packed[-1, -1, 20] = np.nan
+    packed[2, 3, 44:59] = np.nan  # Tout: a NaN pitch and period carry
+    packed[3, 5, 59:74] = np.nan  # pg: a NaN gain carry
+    lp0[1] = np.nan
+    lg0[2] = np.nan
     return packed, lp0, lg0
+
+
+def lane_form_scan(packed, lp0, lg0):
+    """The algebraic rewrite csrc/rd_scan.cu is built on, in float32 numpy,
+    all lanes at once: the carry-free parts (a, lo, gl, c0, the
+    5 (k+2)^2 < T0 flag) formed apart, g1 > max(lo, a - cont) taken as
+    (g1 > lo) and (g1 > a - cont), the winner's slot from the ballot mask as
+    its bit length (32 - clz). A model of the rewrite, not of the kernel:
+    it shows on the CPU that the rewrite keeps the plain version's bits;
+    the card tests below hold the kernel itself to the plain version."""
+    f32 = np.float32
+    S, F, _ = packed.shape
+    c5 = (5 * (np.arange(14) + 2) ** 2).astype(f32)
+    prev_T, prev_g = lp0.astype(f32), lg0.astype(f32)
+    pitch = np.empty((S, F), f32)
+    rows = np.arange(S)
+    with np.errstate(invalid="ignore"):
+        for f in range(F):
+            r = packed[:, f]
+            T1, g1, valid, g0 = r[:, 0:14], r[:, 14:28], r[:, 28:42], r[:, 42:43]
+            lt90 = T1 < 90
+            a = np.where(lt90, f32(0.85) * g0, f32(0.7) * g0)
+            gl = (valid > 0.5) & (g1 > np.where(lt90, f32(0.4), f32(0.3)))
+            c0 = gl & (g1 > a)
+            flag = c5 < r[:, 43:44]
+            d = np.abs(T1 - np.floor(prev_T * f32(0.5))[:, None])
+            c1 = gl & (g1 > a - prev_g[:, None])
+            c2 = gl & (g1 > a - f32(0.5) * prev_g[:, None])
+            win = np.where(d <= 1, c1, np.where((d <= 2) & flag, c2, c0))
+            src = np.frexp((win * (1 << np.arange(14))).sum(-1))[1]  # bit length
+            prev_T, prev_g = r[rows, 44 + src], r[rows, 59 + src]
+            pitch[:, f] = prev_T
+    return pitch, prev_T, prev_g
 
 
 def gather_inputs(seed=5, S=3, F=6):
@@ -344,6 +385,59 @@ class TestRdScan:
         for w, g in zip(want, got):
             np.testing.assert_array_equal(np.asarray(w), g.numpy())
 
+    @needs_jax
+    @pytest.mark.parametrize("rows", ["random", "continuation"])
+    def test_carry_hand_over_bit_exact(self, rows):
+        """rd_scan over F frames == two calls over F // 2 and F - F // 2 with
+        the carries passed on == rd_scan_pallas (interpret mode) over the
+        whole block, bit for bit."""
+        make = rd_inputs if rows == "random" else continuation_rows
+        packed, lp0, lg0 = make(seed=21, S=3, F=23)
+        want = jrnn.rd_scan_pallas(jnp.asarray(packed), jnp.asarray(lp0), jnp.asarray(lg0),
+                                   interpret=True)
+        whole = rk.rd_scan(t(packed), t(lp0), t(lg0))
+        h = packed.shape[1] // 2
+        p1, lp1, lg1 = rk.rd_scan(t(packed[:, :h]), t(lp0), t(lg0))
+        p2, lp2, lg2 = rk.rd_scan(t(packed[:, h:]), lp1, lg1)
+        for w, g, s in zip(want, whole, (torch.cat([p1, p2], dim=1), lp2, lg2)):
+            np.testing.assert_array_equal(np.asarray(w), g.numpy())
+            assert torch.equal(g, s)
+
+    @pytest.mark.parametrize("why", ["none valid", "gains too low"])
+    def test_no_winner_takes_slot_0(self, why):
+        packed, lp0, lg0 = rd_inputs(seed=22, S=4, F=9)
+        if why == "none valid":
+            packed[..., 28:42] = 0.0
+        else:
+            packed[..., 14:28] = 0.25  # under every threshold's floor, 0.3
+        pitch, lp, lg = rk.rd_scan(t(packed), t(lp0), t(lg0))
+        assert torch.equal(pitch, t(packed[..., 44]))
+        assert torch.equal(lp, t(packed[:, -1, 44])) and torch.equal(lg, t(packed[:, -1, 59]))
+
+    @pytest.mark.parametrize("carry", ["finite", "nan"])
+    def test_every_winner_takes_slot_14(self, carry):
+        packed, lp0, lg0 = rd_inputs(seed=23, S=4, F=9)
+        packed[..., 14:28] = 2.0  # over every threshold: g0 < 1, cont >= 0
+        packed[..., 28:42] = 1.0
+        if carry == "nan":
+            lp0[:], lg0[:] = np.nan, np.nan
+        pitch, lp, lg = rk.rd_scan(t(packed), t(lp0), t(lg0))
+        assert torch.equal(pitch, t(packed[..., 58]))
+        assert torch.equal(lp, t(packed[:, -1, 58])) and torch.equal(lg, t(packed[:, -1, 73]))
+
+    @pytest.mark.parametrize("rows", ["random", "continuation", "nan"])
+    def test_lane_form_matches_plain(self, rows):
+        """The rewrite of the threshold test and of the last winner that the
+        kernel is built on (lane_form_scan) equals the plain version bit for
+        bit, NaNs included."""
+        args = continuation_rows(seed=24, S=5, F=60) if rows != "random" else \
+            rd_inputs(seed=24, S=5, F=60)
+        if rows == "nan":
+            args = with_nans(*args)
+        want = rk.rd_scan_reference(*[t(x) for x in args])
+        for w, g in zip(want, lane_form_scan(*args)):
+            np.testing.assert_array_equal(w.numpy(), g)
+
     @pytest.mark.gpu
     def test_kernel_matches_plain_on_card(self, cuda):
         packed, lp0, lg0 = rd_inputs(seed=9, S=70, F=50)
@@ -354,6 +448,55 @@ class TestRdScan:
         want = rk.rd_scan_reference(*args)
         for w, g in zip(want, got):
             assert torch.equal(w, g)
+
+    @pytest.mark.gpu
+    @pytest.mark.parametrize("S", [1, 3, 70, 128])
+    @pytest.mark.parametrize("F", [1, 7, 50, 500])
+    def test_kernel_bit_exact_on_card(self, cuda, S, F):
+        """Random and continuation-heavy rows, odd F (chunks that start off
+        the 16-byte grid) and S off a multiple of the block's 4 streams."""
+        for make in (rd_inputs, continuation_rows):
+            args = [t(x).to(cuda) for x in make(seed=S + F, S=S, F=F)]
+            for w, g in zip(rk.rd_scan_reference(*args), rk.rd_scan(*args)):
+                assert torch.equal(w, g)
+
+    @pytest.mark.gpu
+    @pytest.mark.parametrize("offset", [1, 2, 3])
+    def test_unaligned_rows_on_card(self, cuda, offset):
+        """packed starting 4, 8 or 12 bytes past a 16-byte boundary."""
+        packed, lp0, lg0 = continuation_rows(seed=25, S=9, F=45)
+        buf = torch.empty(packed.size + offset, dtype=torch.float32, device=cuda)
+        rows = buf[offset:].view(packed.shape)
+        rows.copy_(t(packed))
+        args = [rows, t(lp0).to(cuda), t(lg0).to(cuda)]
+        for w, g in zip(rk.rd_scan_reference(*args), rk.rd_scan(*args)):
+            assert torch.equal(w, g)
+
+    @pytest.mark.gpu
+    @pytest.mark.parametrize("S,F", [(3, 41), (128, 500)])
+    def test_continuation_rows_bit_exact_on_card(self, cuda, S, F):
+        args = [t(x).to(cuda) for x in continuation_rows(seed=26, S=S, F=F)]
+        for w, g in zip(rk.rd_scan_reference(*args), rk.rd_scan(*args)):
+            assert torch.equal(w, g)
+
+    @pytest.mark.gpu
+    def test_nan_rows_and_carries_on_card(self, cuda):
+        args = [t(x).to(cuda) for x in with_nans(*continuation_rows(seed=27, S=6, F=70))]
+        got = rk.rd_scan(*args)
+        assert torch.isnan(got[0]).any()
+        for w, g in zip(rk.rd_scan_reference(*args), got):
+            torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+
+    @pytest.mark.gpu
+    def test_repeat_launch_on_card(self, cuda):
+        args = [t(x).to(cuda) for x in rd_inputs(seed=28, S=128, F=500)]
+        before = rk.rd_scan.launches
+        first = rk.rd_scan(*args)
+        assert rk.rd_scan.launches == before + 1
+        again = rk.rd_scan(*args)
+        assert rk.rd_scan.launches == before + 2
+        for x, y in zip(first, again):
+            assert torch.equal(x, y)
 
 
 # ---------------------------------------------------------------------------
