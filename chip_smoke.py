@@ -28,7 +28,30 @@ Phases, each printed on its own lines; any failure exits non-zero:
      must rise, the f32 K1's stay at zero;
   5. throughput: ``denoise_batch`` at S=128, F=500 on the card, 20 blocks
      per stream, timed in 3 calls (median and spread), and the block step
-     of each spectra path by CUDA events.
+     of each spectra path by CUDA events;
+  6. whisper-base (random weights from seed 0, written as an f16 ggml file
+     by the port's ``write_ggml`` and loaded by ``load_ggml``) on the card
+     against the port's CPU path on two 30 s speech-like 16 kHz chunks: the
+     log-mel, the encoder, teacher-forced and prefill logits with an f32 KV
+     cache, the card's cached greedy tokens against the argmax of its own
+     teacher-forced logits along them, and the share of greedy tokens the
+     card and the CPU agree on with the default bf16 cache; then the
+     engine's decode, ``sample_decode`` at T=0 over a 16-chunk bucket with
+     the default cache, on the card against the CPU: equal tokens and
+     lengths, its log-prob sums and no-speech probabilities within 1e-4;
+  7. decode throughput: ``greedy_decode`` at B=8 and B=16 over 30 s chunks,
+     224 tokens with no eot (the worst case), median of 3 calls: RTF, mel
+     plus encoder ms per batch, and a ``torch.profiler`` top 10 and the
+     device-busy share of one decode call;
+  8. end to end: a 5 min 48 kHz 16-bit mono WAV through ``run_transcription``
+     and ``load_engine`` (the phase-6 file under a stub model manager):
+     status, sidecar, progress, every chunk batch on the card, wall time,
+     RTF and the ``stage-timing`` events (host clock; the ``resample``
+     stage times the upload and the launch only, so the resampler's own
+     upload plus conv is timed again by CUDA events).
+
+The Whisper phases run no hand-written kernel (the JAX package's Whisper
+has no Pallas kernel), so they add no row to the kernels line.
 
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``crispy_tpu``.
@@ -72,6 +95,18 @@ SPEC_SCALE = 9000.0  # input scale of the JAX package's own K4-K6 tests
 F32_TOL = 1.5e-4  # the JAX package's own oracle tolerance
 ORACLE_SECONDS = 4  # audio held against the NumPy oracle in phases 3 and 4
 I16_TOL = 1  # LSB
+
+WHISPER = "base"  # whisper-base at its published widths (d=512, 8 heads, 6+6 layers)
+MEL_TOL = 1e-4  # log-mel, absolute: f32 FFTs (cuFFT vs pocketfft) in another order
+ENC_RTOL = 1e-4  # encoder output, x its max: f32 products in another order
+LOGIT_RTOL = 1e-4  # teacher-forced and prefill logits (f32 KV), x their max
+LP_RTOL = 1e-4  # sample_decode's sum of log-probs per chunk, relative
+NS_TOL = 1e-4  # sample_decode's no-speech probability, absolute
+SAMPLE_BATCH = 16  # run_transcription's chunk bucket
+DECODE_NEW = 224  # tokens per chunk in phases 6 and 7
+DECODE_BATCHES = (8, 16)
+DECODE_RUNS = 3
+E2E_SECONDS = 300  # the phase-8 WAV: 10 chunks, one 16-chunk bucket
 
 
 def fail(msg: str) -> None:
@@ -409,6 +444,259 @@ def pitch_track(torch, pipeline, params, audio: np.ndarray, dev) -> np.ndarray:
     return np.concatenate(out, axis=1)
 
 
+@contextlib.contextmanager
+def kv_cache(dtype: str):
+    """CRISPY_WHISPER_KV=dtype inside the block, restored after it."""
+    old = os.environ.get("CRISPY_WHISPER_KV")
+    os.environ["CRISPY_WHISPER_KV"] = dtype
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["CRISPY_WHISPER_KV"]
+        else:
+            os.environ["CRISPY_WHISPER_KV"] = old
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| over max |b|, both brought to the host."""
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def whisper_phase(torch, dev, tmp: Path, rng) -> Path:
+    """Phase 6: whisper-base on the card against the port's CPU path."""
+    from crispy_tpu_torch.dsp.mel import log_mel_spectrogram
+    from crispy_tpu_torch.models.whisper import CONFIGS, WhisperModel
+    from crispy_tpu_torch.models.whisper import model as wm
+    from crispy_tpu_torch.models.whisper.ggml_io import write_ggml
+    from crispy_tpu_torch.models.whisper.weights import init_random
+
+    cfg = CONFIGS[WHISPER]
+    t0 = time.perf_counter()
+    path = write_ggml(tmp / f"ggml-{WHISPER}-random.bin", init_random(cfg, seed=0), cfg, ttype=1)
+    card = WhisperModel.from_ggml(path)  # default device: the card
+    cpu = WhisperModel.from_ggml(path, device="cpu")
+    n_params = sum(p.numel() for p in card.model.parameters())
+    print(f"[6] whisper-{WHISPER}: {n_params / 1e6:.1f} M random weights (seed 0) through an "
+          f"f16 ggml file ({path.stat().st_size / 1e6:.1f} MB), loaded on {card.device} and cpu "
+          f"in {time.perf_counter() - t0:.1f} s")
+    audio = torch.from_numpy(np.stack([speechlike(480000, rng, f0, sr=16000)
+                                       for f0 in (120.0, 210.0)]))
+    with torch.no_grad():
+        mel_c = log_mel_spectrogram(audio.to(dev), cfg.n_mels, pad_to_chunk=True)
+        mel_h = log_mel_spectrogram(audio, cfg.n_mels, pad_to_chunk=True)
+        mel_err = float((mel_c.cpu() - mel_h).abs().max())
+        enc_c = wm.encode(card.model, mel_c)
+        enc_h = wm.encode(cpu.model, mel_h)
+        enc_err = rel_err(enc_c, enc_h)
+        tok = card.tokenizer
+        prompt_ids = tok.sot_sequence("en")
+        seq = torch.tensor([prompt_ids + list(np.random.default_rng(SEED).integers(0, tok.eot, 60))]
+                           * 2)
+        with kv_cache("f32"):
+            tf_err = rel_err(wm.decode_logits(card.model, seq.to(dev), enc_c),
+                             wm.decode_logits(cpu.model, seq, enc_h))
+            L = seq.shape[1]
+            pre_c = wm._prefill(card.model, seq.to(dev), *wm._init_cache(card.model, enc_c, L))[0]
+            pre_h = wm._prefill(cpu.model, seq, *wm._init_cache(cpu.model, enc_h, L))[0]
+            pre_err = rel_err(pre_c, pre_h)
+            prompt = seq[:, : len(prompt_ids)].to(dev)
+            toks, lens = wm.greedy_decode(card.model, enc_c, prompt, max_new=DECODE_NEW)
+            full = torch.cat([prompt, toks], dim=1)
+            tf = wm.decode_logits(card.model, full[:, :-1], enc_c)[:, len(prompt_ids) - 1:]
+            picked = tf.gather(-1, toks[..., None])[..., 0]
+            live = torch.arange(toks.shape[1], device=dev)[None] <= lens[:, None]
+            # a cached token may differ from the teacher-forced argmax only at a
+            # near-tie within the logits tolerance
+            off = ((picked < tf.amax(-1) - LOGIT_RTOL * float(tf.abs().max())) & live)
+            n_off, n_live = int(off.sum()), int(live.sum())
+        g_card, _ = wm.greedy_decode(card.model, enc_c, prompt, max_new=DECODE_NEW)
+        g_cpu, _ = wm.greedy_decode(cpu.model, enc_h, prompt.cpu(), max_new=DECODE_NEW)
+        same = (g_card.cpu() == g_cpu)
+        first_diff = [int(row.logical_not().nonzero()[0]) if not row.all() else DECODE_NEW
+                      for row in same]
+        # the engine's decode (transcribe_chunks_robust's first rung): T=0
+        # over a full bucket, default KV cache, its quality metrics compared
+        a16 = torch.from_numpy(np.stack([speechlike(480000, rng, 90.0 + 11.0 * b, sr=16000)
+                                         for b in range(SAMPLE_BATCH)]))
+        p16 = torch.tensor([prompt_ids] * SAMPLE_BATCH)
+        ns_id = min(tok.no_speech, cfg.n_vocab - 1)
+        sot_index = prompt_ids.index(tok.sot)
+
+        def engine_decode(model, d):
+            mel = log_mel_spectrogram(a16.to(d), cfg.n_mels, pad_to_chunk=True)
+            gen = torch.Generator(device=d).manual_seed(0)
+            out = wm.sample_decode(model, mel, p16.to(d), 0.0, gen, ns_id, sot_index,
+                                   max_new=DECODE_NEW, eot=tok.eot)
+            return [t.cpu() for t in out]
+
+        s_toks, s_lens, s_lp, s_ns = engine_decode(card.model, dev)
+        h_toks, h_lens, h_lp, h_ns = engine_decode(cpu.model, torch.device("cpu"))
+        s_rows = int((s_toks == h_toks).all(1).sum())
+        lp_err = float(((s_lp - h_lp).abs() / h_lp.abs()).max())
+        ns_err = float((s_ns - h_ns).abs().max())
+    print(f"[6] card vs CPU: log-mel max|diff| {mel_err:.3e} (tol {MEL_TOL}); encoder "
+          f"{enc_err:.3e} of its max (tol {ENC_RTOL}); with an f32 KV cache, teacher-forced "
+          f"logits {tf_err:.3e} and prefill logits {pre_err:.3e} of their max on {L} tokens "
+          f"(tol {LOGIT_RTOL}); the card's cached greedy tokens (f32 KV) off the argmax of its "
+          f"own teacher-forced logits: {n_off} of {n_live}")
+    print(f"[6] default bf16 KV cache: greedy tokens agreeing card vs CPU {float(same.float().mean()):.4f} "
+          f"of {same.numel()} (first difference per chunk at token {first_diff})")
+    print(f"[6] sample_decode T=0, B={SAMPLE_BATCH}, default KV cache, card vs CPU: {s_rows} of "
+          f"{SAMPLE_BATCH} token rows equal, lengths {'equal' if torch.equal(s_lens, h_lens) else 'differ'} "
+          f"({s_lens.tolist()}); lp_sum {lp_err:.3e} relative (tol {LP_RTOL}), no_speech_prob "
+          f"{ns_err:.3e} (tol {NS_TOL})")
+    if not mel_err <= MEL_TOL:
+        fail(f"log-mel differs from the CPU path by {mel_err}")
+    if not enc_err <= ENC_RTOL:
+        fail(f"encoder differs from the CPU path by {enc_err} of its max")
+    if not (tf_err <= LOGIT_RTOL and pre_err <= LOGIT_RTOL):
+        fail(f"logits differ from the CPU path: teacher-forced {tf_err}, prefill {pre_err}")
+    if n_off:
+        fail(f"{n_off} cached greedy tokens are not the teacher-forced argmax")
+    if s_rows != SAMPLE_BATCH or not torch.equal(s_lens, h_lens):
+        fail(f"sample_decode's tokens differ from the CPU path in {SAMPLE_BATCH - s_rows} rows")
+    if not (lp_err <= LP_RTOL and ns_err <= NS_TOL):
+        fail(f"sample_decode's lp_sum ({lp_err}) or no_speech_prob ({ns_err}) differ from the CPU")
+    return path
+
+
+def decode_phase(torch, dev, path: Path, rng, card: str) -> dict:
+    """Phase 7: greedy decode throughput at B=8 and B=16, and one profiled call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from crispy_tpu_torch.dsp.mel import log_mel_spectrogram
+    from crispy_tpu_torch.models.whisper import WhisperModel
+    from crispy_tpu_torch.models.whisper import model as wm
+
+    m = WhisperModel.from_ggml(path)
+    cfg = m.cfg
+    out = {}
+    for B in DECODE_BATCHES:
+        audio = torch.from_numpy(
+            np.stack([speechlike(480000, rng, 100.0 + 7.0 * b, sr=16000) for b in range(B)])).to(dev)
+        prompt = torch.tensor([[cfg.sot, cfg.sot + 1, cfg.sot + 2]] * B, device=dev)
+
+        def front():
+            return wm.encode(m.model, log_mel_spectrogram(audio, cfg.n_mels, pad_to_chunk=True))
+
+        def decode():
+            mel = log_mel_spectrogram(audio, cfg.n_mels, pad_to_chunk=True)
+            toks, _ = wm.greedy_decode(m.model, mel, prompt, max_new=DECODE_NEW, eot=-1)
+            return toks
+
+        with torch.no_grad():
+            front_ms = cuda_ms(front, 3, 1)
+            toks = decode()  # warm-up
+            torch.cuda.synchronize()
+            if toks.shape != (B, DECODE_NEW):
+                fail(f"greedy_decode gave tokens of shape {tuple(toks.shape)}")
+            walls = []
+            for _ in range(DECODE_RUNS):
+                t0 = time.perf_counter()
+                decode()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+        wall = float(np.median(walls))
+        out[B] = {"rtf": wall / (B * 30.0), "wall_s": walls, "front_ms": front_ms}
+        print(f"[7] greedy_decode B={B}, {DECODE_NEW} tokens, no eot: wall "
+              f"{', '.join(f'{w:.3f}' for w in walls)} s; RTF {wall / (B * 30.0):.3e} "
+              f"(median; wall seconds per audio second); mel + encoder {front_ms:.2f} ms per "
+              f"batch (CUDA events) [{card}]")
+    # one decode call at the larger batch under the profiler, device
+    # activity only: host events of ~55k launches take a minute to aggregate
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy_ms <= 0:
+        fail("torch.profiler recorded no device time")
+    launches = sum(e.count for e in kernels)
+    print(f"[7] profile of one decode call at B={DECODE_BATCHES[-1]}: wall {wall_ms:.1f} ms "
+          f"(under the profiler), device busy {busy_ms:.1f} ms = {100 * busy_ms / wall_ms:.1f}%, "
+          f"{launches} kernel launches; top 10 by device time:")
+    for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:10]:
+        print(f"[7]   {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d} calls  {e.key[:90]}")
+    out["busy_share"] = busy_ms / wall_ms
+    return out
+
+
+def e2e_phase(torch, dev, path: Path, tmp: Path, rng, card: str) -> None:
+    """Phase 8: run_transcription through load_engine on a 5 min 48 kHz WAV."""
+    from crispy_tpu_torch.api.events import EventBus
+    from crispy_tpu_torch.dsp.resample import resample_poly
+    from crispy_tpu_torch.engine import transcription as tr
+    from crispy_tpu_torch.io import wav as wavio
+    from crispy_tpu_torch.models.registry import ModelInfo
+
+    class StubManager:
+        """The catalog has no whisper-base: this id points at the phase-6 file."""
+        info = ModelInfo(f"whisper-{WHISPER}-random", f"Whisper {WHISPER} (random weights)",
+                         "", path.name, None, 0, "whisper", 0.0, 0.0)
+
+        def find(self, model_id):
+            return self.info if model_id == self.info.id else None
+
+        def model_path(self, model_id):
+            return path
+
+        def is_downloaded(self, model_id):
+            return model_id == self.info.id
+
+    sr = 48000
+    n = E2E_SECONDS * sr
+    pcm = (np.clip(speechlike(n, rng, 140.0, sr=sr), -1.0, 1.0) * 32767.0).astype(np.int16)
+    wav = wavio.write_wav(tmp / "talk.wav", pcm, sr)
+    bus = EventBus()
+    bus.keep_history = True
+    seen = []
+
+    def loader(model_id, mm):
+        engine = tr.load_engine(model_id, mm)  # default device: the card
+        inner = engine.transcribe_batch
+
+        def recording(chunks, language="en"):
+            seen.append((type(chunks).__name__, str(getattr(chunks, "device", "host")),
+                         tuple(chunks.shape)))
+            return inner(chunks, language=language)
+
+        engine.transcribe_batch = recording
+        return engine
+
+    tm = tr.TranscriptionManager(StubManager(), bus=bus, engine_loader=loader)
+    t0 = time.perf_counter()
+    text = tr.run_transcription(str(wav), tm, StubManager.info.id)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = tm.get_state(str(wav))
+    progress = [p["progress"] for e, p in bus.history if e == "transcription-progress"]
+    stages = [(p["stage"], round(p["seconds"], 4), {k: v for k, v in p.items()
+                                                     if k not in ("stage", "seconds")})
+              for e, p in bus.history if e == "stage-timing"]
+    print(f"[8] run_transcription of a {E2E_SECONDS} s 48 kHz 16-bit WAV through load_engine: "
+          f"status {st.status if st else None}, wall {wall:.3f} s, RTF {wall / E2E_SECONDS:.3e} "
+          f"(model load included), chunk batches {seen}, progress {progress}, "
+          f"{len(text)} characters [{card}]")
+    print(f"[8] stage-timing events (host clock): {stages}")
+    audio, _ = wavio.read_wav_mono(wav)
+    rs_ms = cuda_ms(lambda: resample_poly(audio, sr, 16000, wire="i16", device_out=True), 3, 1)
+    print(f"[8] resampler {sr} -> 16000 Hz of the {E2E_SECONDS} s WAV, int16 upload plus conv: "
+          f"{rs_ms:.3f} ms (CUDA events, mean of 3) [{card}]")
+    if st is None or st.status != "completed":
+        fail(f"run_transcription ended in {st}")
+    if tr.load_transcription_result(str(wav)) != text or not text:
+        fail("the sidecar does not hold the returned text")
+    if not progress or progress[-1] != 1.0:
+        fail(f"progress did not reach 1.0: {progress}")
+    if not seen or any(kind != "Tensor" or not d.startswith("cuda") for kind, d, _ in seen):
+        fail(f"a chunk batch was not a tensor on the card: {seen}")
+
+
 def main() -> int:
     # The run uses one card: show torch only the first visible one, so the
     # count it reports is the count it used.
@@ -592,9 +880,23 @@ def main() -> int:
           f"block step on the card: FFT path {step_ms:.3f} ms = {rt / step_ms:.1f}x realtime, "
           f"fused-spectra path {fused_ms:.3f} ms = {rt / fused_ms:.1f}x realtime [{card}]")
 
+    # --- 6 to 8: Whisper transcription ---------------------------------------
+    wrng = np.random.default_rng(SEED + 2)
+    with tempfile.TemporaryDirectory() as tmp:
+        with tempfile.TemporaryDirectory() as data:
+            os.environ["CRISPY_DATA_DIR"] = data  # sidecars stay out of HOME
+            t0 = time.perf_counter()
+            ggml = whisper_phase(torch, dev, Path(tmp), wrng)
+            t1 = time.perf_counter()
+            decode_phase(torch, dev, ggml, wrng, card)
+            t2 = time.perf_counter()
+            e2e_phase(torch, dev, ggml, Path(tmp), wrng, card)
+            print(f"[8] phases 6, 7, 8 took {t1 - t0:.1f}, {t2 - t1:.1f}, "
+                  f"{time.perf_counter() - t2:.1f} s")
+
     for r in rows:
         r["launches"] = launches[r["name"]]
-    print(f"[6] total {time.perf_counter() - t_start:.1f} s")
+    print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -7,10 +7,16 @@ at first use by ``_build.py``). It imports neither ``jax`` nor anything of
 ``crispy_tpu``: what it shares with the JAX package it keeps as its own copy.
 
   device   device resolution (CUDA unless told otherwise) and TF32 off
-  dsp/     the RNNoise pipeline, its kernels and the host resampler
-  engine/  file and array denoising
+  api/     the in-process event bus
+  dsp/     the RNNoise pipeline and its kernels, the Whisper log-mel, the
+           resampler (host and device)
+  engine/  file and array denoising, file transcription
   io/      the WAV codec
-  cli      ``python -m crispy_tpu_torch.cli denoise IN OUT`` and ``bench``
+  models/  Whisper (encoder, decoder, decoding, weights, tokenizer) and the
+           model catalog
+  utils/   the user-data layout and stage timers
+  cli      ``python -m crispy_tpu_torch.cli denoise IN OUT``, ``bench`` and
+           ``transcribe IN --model ID``
 """
 
 __version__ = "0.1.0"

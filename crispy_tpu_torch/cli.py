@@ -3,11 +3,15 @@
   python -m crispy_tpu_torch.cli denoise IN.wav OUT.wav [--ns-model rnnoise]
                                                           RNNoise on the card
   python -m crispy_tpu_torch.cli bench [--streams N]      denoise throughput
+  python -m crispy_tpu_torch.cli transcribe IN.wav --model ID [--language L]
+                                  [--output F]           Whisper speech-to-text
 
-``CRISPY_FUSED_SPECTRA=on`` runs either through the fused-spectra kernels
-(K4-K6) in place of the FFTs.
+``CRISPY_FUSED_SPECTRA=on`` runs denoise and bench through the
+fused-spectra kernels (K4-K6) in place of the FFTs. ``transcribe`` loads
+the model from ``<data root>/Models`` (``CRISPY_DATA_DIR``, else
+``~/Documents/Crispy``) under its catalog file name.
 
-Both run on the CUDA card by default and fail without one; ``--device cpu``
+All run on the CUDA card by default and fail without one; ``--device cpu``
 runs the plain PyTorch path instead.
 """
 
@@ -132,6 +136,29 @@ def _profile(params, state, block, steps: int, dev) -> dict:
     }
 
 
+def _cmd_transcribe(args) -> int:
+    from .api.events import EventBus
+    from .engine import transcription as tr
+    from .models.registry import ModelManager
+
+    tm = tr.TranscriptionManager(ModelManager(), bus=EventBus(), device=args.device)
+    t0 = time.perf_counter()
+    rec = str(args.input)
+    try:
+        text = tr.run_transcription(rec, tm, args.model, language=args.language)
+    except (ValueError, FileNotFoundError) as e:
+        print(json.dumps({"error": str(e)}))
+        return 1
+    if args.output:
+        Path(args.output).write_text(text or "", encoding="utf-8")
+    else:
+        print(text or "")
+    st = tm.get_state(rec)
+    print(json.dumps({"status": st.status if st else None,
+                      "seconds_wall": round(time.perf_counter() - t0, 2)}), file=sys.stderr)
+    return 0 if st is not None and st.status == "completed" else 1
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="crispy_tpu_torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -152,6 +179,14 @@ def main(argv=None) -> int:
     b.add_argument("--profile", action="store_true",
                    help="add device time by kernel (torch.profiler; card only)")
     b.set_defaults(fn=_cmd_bench)
+
+    t = sub.add_parser("transcribe", help="Whisper speech-to-text on a recording")
+    t.add_argument("input", type=Path)
+    t.add_argument("--model", required=True, help="catalog model id (a whisper model)")
+    t.add_argument("--language", default="en", help="spoken language code (e.g. de, ru)")
+    t.add_argument("--output", type=Path, default=None, help="default: print the text")
+    t.add_argument("--device", default=None, help="default: cuda")
+    t.set_defaults(fn=_cmd_transcribe)
 
     args = p.parse_args(argv)
     return args.fn(args)

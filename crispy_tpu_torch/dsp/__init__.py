@@ -1,1 +1,1 @@
-"""DSP layer of the port: the RNNoise pipeline and the host resampler."""
+"""DSP layer of the port: the RNNoise pipeline, the log-mel frontend and the resampler."""

@@ -1,1 +1,1 @@
-"""Engine layer of the port: batched file and array denoising."""
+"""Engine layer of the port: batched file and array denoising, file transcription."""

@@ -1,0 +1,439 @@
+"""File→text transcription pipeline.
+
+The port of ``crispy_tpu/engine/transcription.py``, itself a rebuild of the
+reference's transcription stack (SURVEY §2.3):
+  * TranscriptionManager (managers/transcription.rs:26-249): one loaded
+    engine, current model id, per-recording state map + cancel flags.
+  * run_transcription (commands/transcription.rs:98-481): WAV → mono →
+    16 kHz → 30 s chunks → text, with phase/progress/ETA events,
+    cancellation, and result persistence.
+  * Sidecar persistence (managers/transcription.rs:252-361): hash-keyed
+    .txt / .meta / .chat.json under ~/Documents/Crispy/Transcriptions.
+
+Chunks are batched and decoded together on the card; a recording that is
+not at 16 kHz is resampled there (``resample_poly(device_out=True)``) and
+its chunk batches never leave it. Of the engine types only whisper is
+ported; diarization waits for ROADMAP queue 1, item 9.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+import time
+from dataclasses import asdict, dataclass
+from pathlib import Path
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..api.events import BUS, EventBus
+from ..device import resolve_device
+from ..io import wav as wavio
+from ..models.registry import ModelManager
+from ..utils import paths
+from ..utils.tracing import stage
+
+TARGET_SAMPLE_RATE = 16000  # commands/transcription.rs:173
+TRANSCRIBE_CHUNK_SECONDS = 30  # :175
+CHUNK_SAMPLES = TARGET_SAMPLE_RATE * TRANSCRIBE_CHUNK_SECONDS
+
+
+# ---------------------------------------------------------------------------
+# Persistence (hash-keyed sidecars)
+# ---------------------------------------------------------------------------
+
+def transcription_file_stem(recording_path: str) -> str:
+    """Stable 16-hex stem from the recording path.
+
+    The reference uses Rust's DefaultHasher (SipHash with an unspecified
+    key); any stable 64-bit hash with the same format works — FNV-1a here.
+    """
+    h = np.uint64(0xCBF29CE484222325)
+    for b in str(recording_path).encode("utf-8"):
+        h = np.uint64((int(h) ^ b) * 0x100000001B3 & 0xFFFFFFFFFFFFFFFF)
+    return f"{int(h):016x}"
+
+
+def _tdir() -> Path:
+    return paths.ensure_dir(paths.transcriptions_dir())
+
+
+def transcription_result_path(recording_path: str) -> Path:
+    return _tdir() / f"{transcription_file_stem(recording_path)}.txt"
+
+
+def transcription_metadata_path(recording_path: str) -> Path:
+    return _tdir() / f"{transcription_file_stem(recording_path)}.meta"
+
+
+def transcription_chat_history_path(recording_path: str) -> Path:
+    return _tdir() / f"{transcription_file_stem(recording_path)}.chat.json"
+
+
+def save_transcription_result(recording_path: str, text: str) -> None:
+    transcription_result_path(recording_path).write_text(text, encoding="utf-8")
+
+
+def load_transcription_result(recording_path: str) -> Optional[str]:
+    p = transcription_result_path(recording_path)
+    return p.read_text(encoding="utf-8") if p.exists() else None
+
+
+def save_transcription_metadata(recording_path: str, model_id: str) -> None:
+    transcription_metadata_path(recording_path).write_text(
+        json.dumps({"model_id": model_id}), encoding="utf-8"
+    )
+
+
+def load_transcription_metadata(recording_path: str) -> Optional[str]:
+    p = transcription_metadata_path(recording_path)
+    if not p.exists():
+        return None
+    return json.loads(p.read_text(encoding="utf-8")).get("model_id")
+
+
+def transcription_progress_path(recording_path: str) -> Path:
+    return _tdir() / f"{transcription_file_stem(recording_path)}.progress.json"
+
+
+def _save_progress(recording_path: str, payload: dict) -> None:
+    """Atomic temp+rename write (the settings-store discipline) so a crash
+    mid-write can't corrupt the checkpoint."""
+    p = transcription_progress_path(recording_path)
+    tmp = p.with_suffix(".json.tmp")
+    tmp.write_text(json.dumps(payload), encoding="utf-8")
+    tmp.replace(p)
+
+
+def _load_progress(recording_path: str) -> Optional[dict]:
+    p = transcription_progress_path(recording_path)
+    if not p.exists():
+        return None
+    try:
+        return json.loads(p.read_text(encoding="utf-8"))
+    except (json.JSONDecodeError, OSError):
+        return None  # unreadable checkpoint: restart from zero
+
+
+def clear_transcription_progress(recording_path: str) -> None:
+    transcription_progress_path(recording_path).unlink(missing_ok=True)
+
+
+def save_transcription_chat_history(recording_path: str, messages: List[dict]) -> None:
+    transcription_chat_history_path(recording_path).write_text(
+        json.dumps(messages, indent=2), encoding="utf-8"
+    )
+
+
+def load_transcription_chat_history(recording_path: str) -> List[dict]:
+    p = transcription_chat_history_path(recording_path)
+    if not p.exists():
+        return []
+    return json.loads(p.read_text(encoding="utf-8"))
+
+
+# ---------------------------------------------------------------------------
+# Engine loading
+# ---------------------------------------------------------------------------
+
+class EngineProtocol:
+    """A loaded speech model: batched 30 s chunk transcription. Chunks come
+    as a [B, 480000] numpy array or a tensor on the engine's device."""
+
+    name: str = "engine"
+
+    #: Preferred large chunk-batch size, 0 = no preference. Engines whose
+    #: decode cost is dominated by a sequential per-step loop (whisper's
+    #: 224-step decode) amortize steps over bigger batches.
+    #: run_transcription schedules batches of this size while more than
+    #: `batch_chunks` chunks remain; engines left at 0 keep the fixed
+    #: `batch_chunks` schedule.
+    decode_batch_bucket: int = 0
+
+    def transcribe_batch(self, chunks_16k, language: str = "en") -> List[str]:
+        raise NotImplementedError
+
+
+def load_engine(model_id: str, model_manager: ModelManager, device=None) -> EngineProtocol:
+    """EngineType dispatch (managers/transcription.rs:119-172): whisper ggml
+    files and HF checkpoint dirs load into the port's Whisper on ``device``
+    (default: the card)."""
+    info = model_manager.find(model_id)
+    if info is None:
+        raise ValueError(f"unknown model: {model_id}")
+    if info.engine_type != "whisper":
+        raise ValueError(f"engine type '{info.engine_type}' of model {model_id} is not "
+                         "ported yet (ROADMAP queue 1, item 8)")
+    path = model_manager.model_path(model_id)
+    if not model_manager.is_downloaded(model_id):
+        raise FileNotFoundError(f"model not downloaded: {model_id}")
+    from ..models.whisper import WhisperModel
+
+    if path.is_dir():
+        wm = WhisperModel.from_hf(path, name=model_id, device=device)
+    else:
+        wm = WhisperModel.from_ggml(path, name=model_id, device=device)
+
+    class _WhisperEngine(EngineProtocol):
+        name = model_id
+        decode_batch_bucket = 16
+        model = wm
+
+        def transcribe_batch(self, chunks, language="en"):
+            # whisper.cpp applies temperature fallback + the no-speech
+            # gate internally (transcription.rs delegates); match it.
+            return wm.transcribe_chunks_robust(chunks, language=language)
+
+    return _WhisperEngine()
+
+
+# ---------------------------------------------------------------------------
+# Manager
+# ---------------------------------------------------------------------------
+
+@dataclass
+class TranscriptionState:
+    status: str
+    progress: float = 0.0
+    eta_seconds: Optional[int] = None
+    phase: Optional[str] = None
+
+
+class TranscriptionManager:
+    """Loaded engine + per-recording state/cancel registry. ``device``
+    (default: the card) is where engines load and recordings resample."""
+
+    def __init__(self, model_manager: ModelManager, bus: EventBus = BUS,
+                 engine_loader: Optional[Callable] = None, device=None):
+        self.model_manager = model_manager
+        self.bus = bus
+        self.device = resolve_device(device)
+        self._engine: Optional[EngineProtocol] = None
+        self._current_model_id: Optional[str] = None
+        self._states: Dict[str, TranscriptionState] = {}
+        self._cancel: Dict[str, threading.Event] = {}
+        self._lock = threading.Lock()
+        self._loader = engine_loader or (
+            lambda mid, mm: load_engine(mid, mm, device=self.device))
+
+    # -- model ------------------------------------------------------------------
+    def get_current_model(self) -> Optional[str]:
+        return self._current_model_id
+
+    def load_model(self, model_id: str) -> None:
+        if self._current_model_id == model_id and self._engine is not None:
+            return
+        self._engine = self._loader(model_id, self.model_manager)
+        self._current_model_id = model_id
+
+    @property
+    def engine(self) -> Optional[EngineProtocol]:
+        return self._engine
+
+    # -- state ------------------------------------------------------------------
+    def set_state(self, recording_path: str, state: TranscriptionState) -> None:
+        with self._lock:
+            self._states[recording_path] = state
+
+    def get_state(self, recording_path: str) -> Optional[TranscriptionState]:
+        with self._lock:
+            return self._states.get(recording_path)
+
+    def get_all_states(self) -> Dict[str, dict]:
+        with self._lock:
+            return {k: asdict(v) for k, v in self._states.items()}
+
+    def create_cancel_flag(self, recording_path: str) -> threading.Event:
+        ev = threading.Event()
+        with self._lock:
+            self._cancel[recording_path] = ev
+        return ev
+
+    def cancel(self, recording_path: str) -> bool:
+        with self._lock:
+            ev = self._cancel.get(recording_path)
+        if ev is not None:
+            ev.set()
+            return True
+        return False
+
+    def remove_cancel_flag(self, recording_path: str) -> None:
+        with self._lock:
+            self._cancel.pop(recording_path, None)
+
+
+# ---------------------------------------------------------------------------
+# The pipeline
+# ---------------------------------------------------------------------------
+
+def run_transcription(
+    recording_path: str,
+    tm: TranscriptionManager,
+    model_id: str,
+    language: str = "en",
+    diarization: Optional[dict] = None,
+    batch_chunks: int = 8,
+) -> Optional[str]:
+    """Blocking transcription of one recording. Returns the final text
+    (None on cancel); raises on errors. Emits the reference's event stream."""
+    if diarization and diarization.get("enabled"):
+        raise NotImplementedError(
+            "diarization is not ported yet (ROADMAP queue 1, item 9)")
+    bus = tm.bus
+    cancel = tm.create_cancel_flag(recording_path)
+
+    def set_phase(phase: str):
+        tm.set_state(recording_path, TranscriptionState("transcribing", prog[0], None, phase))
+        bus.emit("transcription-phase", {"recording_path": recording_path, "phase": phase})
+
+    prog = [0.0]
+    try:
+        tm.set_state(recording_path, TranscriptionState("started", 0.0, None, "preparing-audio"))
+        bus.emit("transcription-status",
+                 {"recording_path": recording_path, "status": "started", "error": None})
+        set_phase("preparing-audio")
+
+        audio, sr = wavio.read_wav_mono(recording_path)  # channel 0
+        if audio.size == 0:
+            save_transcription_result(recording_path, "")
+            save_transcription_metadata(recording_path, model_id)
+            _finish(tm, bus, recording_path, "completed")
+            return ""
+        total_seconds = audio.size / sr
+
+        set_phase("loading-model")
+        tm.load_model(model_id)
+
+        if sr != TARGET_SAMPLE_RATE:
+            from ..dsp.resample import resample_poly
+
+            # 16-bit sources upload as int16 PCM (exact: the decoded floats
+            # sit on the int16 grid), half the bytes; the 16 kHz result stays
+            # on the device, where the chunk batches are decoded.
+            fmt = wavio.read_format(recording_path)
+            wire = "i16" if fmt is not None and fmt.bits_per_sample == 16 else "f32"
+            with stage("resample", bus, {"samples": int(audio.size)}):
+                audio = resample_poly(audio, sr, TARGET_SAMPLE_RATE, wire=wire,
+                                      device_out=True, device=tm.device)
+        total_out = int(audio.shape[0])
+
+        # 30 s chunks, final partial chunk zero-padded (tail flush,
+        # commands/transcription.rs:347-400). Device audio chunks on the
+        # device; host audio stays on the host (engines accept either).
+        n_chunks = max(1, -(-total_out // CHUNK_SAMPLES))
+        if isinstance(audio, torch.Tensor):
+            chunks = F.pad(audio, (0, n_chunks * CHUNK_SAMPLES - total_out)).reshape(
+                n_chunks, CHUNK_SAMPLES)
+        else:
+            chunks = np.zeros((n_chunks, CHUNK_SAMPLES), np.float32)
+            chunks.reshape(-1)[:total_out] = audio
+
+        set_phase("transcribing")
+        # Chunk-level checkpoint/resume: a cancelled or crashed job restarts
+        # from its last completed batch, not from zero.
+        parts: List[Tuple[float, float, str]] = []
+        resume_chunk = 0
+        ckpt = _load_progress(recording_path)
+        if (ckpt and ckpt.get("model_id") == model_id
+                and ckpt.get("language") == language
+                and ckpt.get("n_chunks") == n_chunks
+                and not ckpt.get("diarization")):
+            parts = [(float(s), float(e), t) for s, e, t in ckpt.get("parts", [])]
+            resume_chunk = min(int(ckpt.get("done_chunks", 0)), n_chunks)
+        start_t = time.monotonic()
+        # Batch schedule: the engine's preferred large bucket while more
+        # than `batch_chunks` chunks remain, the `batch_chunks` bucket for
+        # the tail, exact shape for short files.
+        big = max(getattr(tm.engine, "decode_batch_bucket", 0) or 0, batch_chunks)
+        b0 = resume_chunk
+        while b0 < n_chunks:
+            if cancel.is_set():
+                _finish(tm, bus, recording_path, "cancelled")
+                return None
+            rem = n_chunks - b0
+            if n_chunks <= batch_chunks:
+                bsz = rem  # short file: one exact-shape batch
+            elif rem > batch_chunks:
+                bsz = big
+            else:
+                bsz = batch_chunks
+            batch = chunks[b0: b0 + bsz]
+            n_live = batch.shape[0]
+            if n_live < bsz:
+                # pad the tail batch to the bucket shape; pad rows are dropped
+                if isinstance(batch, torch.Tensor):
+                    batch = F.pad(batch, (0, 0, 0, bsz - n_live))
+                else:
+                    batch = np.concatenate(
+                        [batch, np.zeros((bsz - n_live, CHUNK_SAMPLES), np.float32)])
+            with stage("transcribe-batch", bus, {"chunks": n_live}):
+                texts = tm.engine.transcribe_batch(batch, language=language)[:n_live]
+            for j, text in enumerate(texts):
+                cs = (b0 + j) * TRANSCRIBE_CHUNK_SECONDS
+                if text.strip():
+                    parts.append((cs, min(cs + TRANSCRIBE_CHUNK_SECONDS, total_seconds), text))
+            done_chunks = b0 + len(texts)
+            _save_progress(recording_path, {
+                "model_id": model_id, "language": language,
+                "n_chunks": n_chunks, "done_chunks": done_chunks,
+                "diarization": False,
+                "parts": [[s, e, t] for s, e, t in parts],
+            })
+            done_samples = min(done_chunks * CHUNK_SAMPLES, total_out)
+            progress = min(1.0, done_samples / max(total_out, 1))
+            done_sec = done_samples / TARGET_SAMPLE_RATE
+            # ETA from the rate realized in this run (:287-299); resumed
+            # chunks took no wall time here.
+            sess_sec = done_sec - resume_chunk * TRANSCRIBE_CHUNK_SECONDS
+            eta = None
+            if sess_sec > 0.5:
+                rate = (time.monotonic() - start_t) / sess_sec
+                eta = int(round(max(total_seconds - done_sec, 0.0) * rate))
+            prog[0] = progress
+            tm.set_state(recording_path,
+                         TranscriptionState("transcribing", progress, eta, "transcribing"))
+            bus.emit("transcription-progress",
+                     {"recording_path": recording_path, "progress": progress,
+                      "eta_seconds": eta})
+            b0 += n_live
+
+        text = " ".join(t for _, _, t in parts).strip()
+        save_transcription_result(recording_path, text)
+        save_transcription_metadata(recording_path, model_id)
+        clear_transcription_progress(recording_path)  # checkpoint consumed
+        _finish(tm, bus, recording_path, "completed")
+        return text
+    except Exception as e:
+        tm.set_state(recording_path, TranscriptionState("error", prog[0]))
+        bus.emit("transcription-status",
+                 {"recording_path": recording_path, "status": "error", "error": str(e)})
+        raise
+    finally:
+        tm.remove_cancel_flag(recording_path)
+
+
+def _finish(tm, bus, recording_path, status):
+    tm.set_state(recording_path, TranscriptionState(status, 1.0 if status == "completed" else 0.0))
+    bus.emit("transcription-status",
+             {"recording_path": recording_path, "status": status, "error": None})
+
+
+def start_transcription(recording_path: str, tm: TranscriptionManager, model_id: str,
+                        **kwargs) -> threading.Thread:
+    """Spawn the worker thread (commands/transcription.rs:32-96)."""
+    t = threading.Thread(
+        target=lambda: _guarded(run_transcription, recording_path, tm, model_id, **kwargs),
+        daemon=True,
+    )
+    t.start()
+    return t
+
+
+def _guarded(fn, *a, **kw):
+    try:
+        fn(*a, **kw)
+    except Exception:
+        pass  # state/events already record the error

@@ -1,7 +1,8 @@
 """WAV codec: RIFF chunk-walking reader and s16/f32 writer.
 
 The PyTorch port's own copy of the parts of ``crispy_tpu/io/wav.py`` that
-file denoising uses (``read_format``, ``read_wav``, ``write_wav``); the port
+file denoising and transcription use (``read_format``, ``read_wav``,
+``read_wav_mono``, ``write_wav``); the port
 imports nothing of the JAX package. The reader walks RIFF chunks tolerant of
 LIST/INFO chunks and truncated files (src-tauri/src/commands/recording.rs:
 384-460); the writer clamps and scales by 32767 like the reference's
@@ -112,6 +113,13 @@ def read_wav(path: PathLike) -> Tuple[np.ndarray, int]:
         f.seek(fmt.data_offset)
         raw = f.read(fmt.data_size)
     return _decode(raw, fmt), fmt.sample_rate
+
+
+def read_wav_mono(path: PathLike, channel: int = 0) -> Tuple[np.ndarray, int]:
+    """Read one channel (reference reads channel 0 —
+    commands/transcription.rs:308-312)."""
+    data, rate = read_wav(path)
+    return np.ascontiguousarray(data[:, min(channel, data.shape[1] - 1)]), rate
 
 
 def write_wav(
