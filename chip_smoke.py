@@ -14,7 +14,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
      twice: its resident variant on the builtin weights and its f32 variant
      on the same weights moved off the fp16 grid; K2 bit-exact on random
      rows and on rows heavy in continuations, with its own device time
-     (torch.profiler) beside its design floor;
+     (torch.profiler) beside its design floor; then K1 (resident), K2 and
+     K3 at the monitoring shape, S=1, F=1, at the same tolerances, timed by
+     CUDA events and by torch.profiler;
   3. the default (FFT) path: a 2-channel 30 s 48 kHz 16-bit WAV through
      ``denoise_file`` (int16 wire) and the same samples through
      ``denoise_array`` (f32), on the card, held against the port's CPU path,
@@ -50,10 +52,31 @@ Phases, each printed on its own lines; any failure exits non-zero:
      stage times the upload and the launch only, so the resampler's own
      upload plus conv is timed again by CUDA events).
 
+  9. live monitoring and recording: (a) ``GraphedBlockStep`` (the block
+     step at S=1, F=1 replayed from a CUDA graph) on each spectra path over
+     400 frames, bit-equal to the eager step on the card and within 1.5e-4
+     of the oracle on every frame whose pitch index is the oracle's (a
+     pitch index at a near-tie, and the frame after it, are counted and
+     printed); (b) the main path: ``MonitoringEngine`` (realtime off) on a
+     30 s 48 kHz device, its ``mic_tap`` feeding a recording started by
+     ``do_start_recording`` with a ``FileSource`` app track, the WAV held
+     to a host replay of the mix from the logged ring operations, the
+     monitor's output and the app track (48 kHz stereo s16, L == R, within
+     1 LSB), K1-K3 launched once a frame; (c) ``push_block``'s per-frame
+     latency through the graph over 1,000 frames, failing if its median
+     exceeds the 10 ms frame budget, and the eager step's for the record;
+     (d) the same while ``denoise_batch`` at S=128, F=500 runs in another
+     thread (printed only); (e) a ``torch.profiler`` trace of 20 replays
+     showing K1 (resident), K2 and K3 once each, the kernels and device time
+     a frame; (f) the ``resample`` command on a 44.1 kHz WAV and config 2 on
+     the card (10 min of 44.1 kHz to 48 kHz, added to a 48 kHz track, dual
+     mono) by CUDA events (printed only).
+
 The Whisper phases run no hand-written kernel (the JAX package's Whisper
 has no Pallas kernel), so they add no row to the kernels line.
 
-Then one JSON line with every kernel's numbers, and as the last line
+Then one JSON line with every kernel's numbers (launches from phases 3, 4
+and 9b), and as the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``crispy_tpu``.
 """
 
@@ -107,6 +130,13 @@ DECODE_NEW = 224  # tokens per chunk in phases 6 and 7
 DECODE_BATCHES = (8, 16)
 DECODE_RUNS = 3
 E2E_SECONDS = 300  # the phase-8 WAV: 10 chunks, one 16-chunk bucket
+
+MON_FRAMES = 400  # phase 9a: frames through the graphed and the eager step, each path
+MON_SECONDS = 30  # phase 9b: the monitored device's length
+LAT_FRAMES = 1000  # phase 9c, 9d: frames timed through push_block
+EAGER_FRAMES = 60  # phase 9c: frames through the eager step (the first 5 not counted)
+PROFILE_FRAMES = 20  # phase 9e: replays under torch.profiler
+CFG2_SECONDS = 600  # phase 9f: config 2's 10 min of 44.1 kHz
 
 
 def fail(msg: str) -> None:
@@ -697,6 +727,427 @@ def e2e_phase(torch, dev, path: Path, tmp: Path, rng, card: str) -> None:
         fail(f"a chunk batch was not a tensor on the card: {seen}")
 
 
+def monitoring_shape_lines(torch, pipeline, rk, ok, params, dev, rng) -> None:
+    """Phase 2 at the monitoring shape, one stream and one frame a step
+    (S=1, F=1): K1 (resident), K2 and K3 against their plain versions at the
+    tolerances above, timed by CUDA events over back-to-back calls (host
+    launch cost included) and by torch.profiler (the kernel's own time)."""
+    from crispy_tpu_torch.dsp.rnnoise import rd_rows
+
+    S, F = 1, 1
+    f32 = np.float32
+    feats = torch.from_numpy(rng.standard_normal((S, F, 42)).astype(f32)).to(dev)
+    silence = torch.zeros((S, F), dtype=torch.bool, device=dev)
+    state = pipeline.init_state(S, dev)
+    for k in ("gru_vad", "gru_noise", "gru_denoise", "lastg"):
+        state[k] = torch.from_numpy(rng.random(tuple(state[k].shape)).astype(f32)).to(dev)
+    (a1, a2, a3), sa = rk.nn_scan(params, state, feats, silence)
+    (b1, b2, b3), sb = rk.nn_scan_reference(params, state, feats, silence)
+    torch.cuda.synchronize()
+    k1_err = max(float((x - y).abs().max()) for x, y in
+                 [(a1, b1), (a2, b2), (a3, b3)] + [(sa[k], sb[k]) for k in sa])
+    rows = {}
+    for kind in ("random", "continuation"):
+        rows[kind] = tuple(torch.from_numpy(x).to(dev)
+                           for x in getattr(rd_rows, f"{kind}_rows")(rng, S, F))
+        pa, pb = rk.rd_scan(*rows[kind]), rk.rd_scan_reference(*rows[kind])
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(pa, pb)):
+            fail(f"K2 is not bit-exact at S=1, F=1 on the {kind} rows")
+    L = pipeline.HIST + 1 + F * pipeline.FRAME
+    ext = torch.from_numpy(rng.standard_normal((S, L)).astype(f32) * 1e3).to(dev)
+    starts = torch.tensor([[1 + (pipeline.PBUF - pipeline.WIN) - 300]], dtype=torch.int32,
+                          device=dev)
+    k3_err = float((ok.pitch_window_gather(ext, starts)
+                    - ok.pitch_window_gather_reference(ext, starts)).abs().max())
+    cases = (("nn_scan", "nn_scan_resident_kernel", k1_err, f"tol {K1_TOL}",
+              lambda: rk.nn_scan(params, state, feats, silence),
+              lambda: rk.nn_scan_reference(params, state, feats, silence)),
+             ("rd_scan", "rd_scan_kernel", 0.0, "bit-exact required",
+              lambda: rk.rd_scan(*rows["random"]), lambda: rk.rd_scan_reference(*rows["random"])),
+             ("pitch_window_gather", "pitch_gather_kernel", k3_err, "exact required",
+              lambda: ok.pitch_window_gather(ext, starts),
+              lambda: ok.pitch_window_gather_reference(ext, starts)))
+    for name, kname, err, tol, kern, plain in cases:
+        ms = cuda_ms(kern, 200)
+        dms = device_ms(kern, 50, kname)
+        plain_ms = cuda_ms(plain, 20)
+        print(f"[2] monitoring shape S=1 F=1: {name} max|kernel-plain|={err:.3e} ({tol}); "
+              f"kernel {ms:.4f} ms a call (CUDA events over 200 calls), device time "
+              f"{dms:.4f} ms (torch.profiler), plain {plain_ms:.4f} ms")
+    if not k1_err <= K1_TOL:
+        fail(f"K1 differs from its plain version at S=1, F=1 by {k1_err}")
+    if k3_err != 0.0:
+        fail(f"K3 is not exact at S=1, F=1: {k3_err}")
+
+
+class LoggedRing:
+    """A recording ring that logs each operation with its length, in the
+    order the operations took effect, for the host replay of the mix."""
+
+    def __init__(self, ring, log, name, gate=None):
+        import threading
+
+        self.ring, self.log, self.name, self.gate = ring, log, name, gate
+        self._lock = threading.Lock()
+
+    def push(self, samples) -> None:
+        if self.gate is not None:
+            self.gate(self)
+        with self._lock:
+            self.ring.push(samples)
+            self.log.append((self.name, "push", int(np.asarray(samples).size)))
+
+    def pop(self, n: int):
+        with self._lock:
+            out = self.ring.pop(n)
+            self.log.append((self.name, "pop", int(out.size)))
+        return out
+
+    def trim_front(self, n: int) -> None:
+        with self._lock:
+            before = len(self.ring)
+            self.ring.trim_front(n)
+            self.log.append((self.name, "trim", before - len(self.ring)))
+
+    def clear(self) -> None:
+        with self._lock:
+            self.ring.clear()
+            self.log.append((self.name, "clear", 0))
+
+    def __len__(self) -> int:
+        return len(self.ring)
+
+
+def replay_mix(log, mic: np.ndarray, app: np.ndarray, frame: int, capacity: int) -> np.ndarray:
+    """The mixer worker's output rebuilt on the host from the logged ring
+    operations, the monitor's output (the mic feed) and the app track: each
+    frame is mic pop + app pop, zero-filled to the frame, as the worker mixes
+    it."""
+    from collections import deque
+
+    src = {"mic": mic, "app": app}
+    pos = {"mic": 0, "app": 0}
+    rings = {"mic": deque(), "app": deque()}
+    pops = {"mic": [], "app": []}
+    for name, op, n in log:
+        r = rings[name]
+        if op == "push":
+            r.extend(src[name][pos[name]: pos[name] + n].tolist())
+            pos[name] += n
+            while len(r) > capacity:
+                r.popleft()
+        elif op == "pop":
+            pops[name].append(np.array([r.popleft() for _ in range(n)], np.float32))
+        elif op == "trim":
+            for _ in range(n):
+                r.popleft()
+        else:
+            r.clear()
+    if pos["mic"] != mic.size:
+        fail(f"the mic ring took {pos['mic']} samples, the monitor gave {mic.size}")
+    frames = []
+    for m, a in zip(pops["mic"], pops["app"]):
+        frames.append(np.pad(m, (0, frame - m.size)) + np.pad(a, (0, frame - a.size)))
+    return np.concatenate(frames) if frames else np.zeros(0, np.float32)
+
+
+def percentiles(ms) -> str:
+    a = np.asarray(ms)
+    return (f"median {np.median(a):.4f}, p99 {np.percentile(a, 99):.4f}, max {a.max():.4f} ms "
+            f"over {a.size} frames")
+
+
+def graph_vs_eager(torch, pipeline, params, model, dev, rng) -> None:
+    """Phase 9a: GraphedBlockStep against the eager step and the oracle, on
+    each spectra path, over MON_FRAMES frames at S=1, F=1.
+
+    The oracle is held at F32_TOL on every frame but a frame whose pitch
+    index differs from the oracle's and the frame after it (its synthesis
+    tail overlaps that one): a pitch index one apart at a near-tie of the
+    pitch search is a legitimate result in f32, and the JAX package's own
+    single-frame step takes the same one on this audio. Such frames are
+    counted and printed with their error; more than 1% of them, or indices
+    more than 2 apart, fail."""
+    from crispy_tpu_torch.dsp.rnnoise import oracle
+    from crispy_tpu_torch.dsp.rnnoise.graphed import GraphedBlockStep
+
+    FR = pipeline.FRAME
+    x = speechlike(MON_FRAMES * FR, rng, 130.0)
+    frames = x.reshape(MON_FRAMES, FR)
+    ost = oracle.DenoiseState(model=model)
+    want, pitch_oracle = [], []
+    for f in frames:
+        out, _ = ost.process_frame(f * np.float32(32768.0))
+        want.append(out / np.float32(32768.0))
+        pitch_oracle.append(ost.last_period)
+    want, pitch_oracle = np.stack(want), np.array(pitch_oracle)
+    for path in ("off", "on"):
+        with spectra_path(path), torch.no_grad():
+            t0 = time.perf_counter()
+            step = GraphedBlockStep(params, 1, 1, dev)
+            t_capture = time.perf_counter() - t0
+            got = np.stack([step.step(f[None]).numpy()[0] for f in frames])
+            state = pipeline.init_state(1, dev)
+            eager, pitch = [], []
+            for f in frames:
+                state, o, _ = pipeline.denoise_block(params, state,
+                                                     torch.from_numpy(f[None]).to(dev))
+                eager.append(o.cpu().numpy()[0])
+                pitch.append(int(state["last_period"][0]))
+            eager, pitch = np.stack(eager), np.array(pitch)
+        n_diff = int(np.sum(got != eager))
+        err = np.abs(got - want).max(axis=1)
+        flips = np.nonzero(pitch != pitch_oracle)[0]
+        near = np.zeros(MON_FRAMES, bool)
+        near[flips] = True
+        near[np.minimum(flips + 1, MON_FRAMES - 1)] = True
+        o_err = float(err[~near].max())
+        print(f"[9a] {'fused' if path == 'on' else 'FFT'} path: GraphedBlockStep (warm-up and "
+              f"capture {t_capture:.2f} s) over {MON_FRAMES} frames vs eager denoise_block on the "
+              f"card at S=1, F=1: {n_diff} samples differ (bit-equal required); vs the port's "
+              f"oracle max|diff|={o_err:.3e} (tol {F32_TOL}) on the frames whose pitch index is "
+              f"the oracle's; pitch index differs on frames {flips.tolist()} (card "
+              f"{pitch[flips].tolist()}, oracle {pitch_oracle[flips].tolist()}), max|diff| "
+              f"{float(err[near].max()) if near.any() else 0.0:.3e} on them and the frames "
+              f"after them")
+        if n_diff:
+            fail(f"the graphed step differs from the eager step on the {path} path")
+        if not o_err <= F32_TOL:
+            fail(f"the graphed step differs from the oracle by {o_err} on the {path} path")
+        if flips.size > MON_FRAMES // 100 or np.any(np.abs(pitch - pitch_oracle) > 2):
+            fail(f"the pitch track departs from the oracle's on the {path} path: {flips}")
+
+
+def monitor_and_record(tmp: Path, rng, kernels: dict) -> dict:
+    """Phase 9b, the slice's main path: MonitoringEngine (realtime off, the
+    rnnoise model, default device: the card) on a MON_SECONDS 48 kHz device,
+    its mic_tap feeding a recording started by do_start_recording with a
+    FileSource app track. The WAV is held to a host replay of the mix.
+    Returns the kernel launches of the run."""
+    from crispy_tpu_torch import runtime
+    from crispy_tpu_torch.api.events import EventBus
+    from crispy_tpu_torch.engine import monitoring, recording
+    from crispy_tpu_torch.io import wav as wavio
+
+    FR = 480
+    n = MON_SECONDS * 48000
+    mic_in = speechlike(n, rng, 115.0)
+    app_pcm = (np.clip(speechlike(n, rng, 240.0, level=0.3), -1, 1) * 32767).astype(np.int16)
+    app_wav = wavio.write_wav(tmp / "app.wav", app_pcm, 48000)
+    app_track, _ = wavio.read_wav_mono(app_wav)
+    feed = {"i": 0}
+
+    def device_fn(k):
+        i = feed["i"]
+        feed["i"] += k
+        return mic_in[i: i + k]
+
+    reg = monitoring.DeviceRegistry()
+    reg.register(monitoring.InputDevice("speech", device_fn, 48000.0))
+    state = recording.RecordingState()
+    log = []
+    source = recording.FileSource(app_wav, block=FR)
+
+    def app_gate(ring):
+        # the app track arrives in step with the mic, as two live captures
+        # would, not all at once into its 10 s ring
+        while len(ring) > len(state.mic_ring) + recording.MIX_FRAME and not source._stop.is_set():
+            time.sleep(0.0002)
+
+    state.mic_ring = LoggedRing(state.mic_ring, log, "mic")
+    state.app_ring = LoggedRing(state.app_ring, log, "app", gate=app_gate)
+    bus = EventBus()
+    bus.keep_history = True
+    mon_out = []
+    eng = monitoring.MonitoringEngine(registry=reg, bus=bus, output_sink=mon_out.append,
+                                      mic_tap=state.mic_ring.push)
+    eng.realtime = False
+    for k, attr in kernels.values():
+        setattr(k, attr, 0)
+    t0 = time.perf_counter()
+    wav = recording.do_start_recording(state, app_source=source, recordings_dir=tmp / "rec")
+    eng.start_monitoring("speech", model_name="rnnoise")
+    eng._thread.join(timeout=300)
+    if eng.active:
+        fail("the monitor loop did not reach the end of its input")
+    eng.stop_monitoring()
+    deadline = time.time() + 30
+    while len(state.mic_ring) >= recording.MIX_FRAME and time.time() < deadline:
+        time.sleep(0.01)
+    out_path = Path(recording.do_stop_recording(state))
+    wall = time.perf_counter() - t0
+    launches = {name: getattr(k, attr) for name, (k, attr) in kernels.items()}
+    mic_out = np.concatenate(mon_out)
+    rec_audio, rec_sr = wavio.read_wav(out_path)
+    fmt = wavio.read_format(out_path)
+    expect = replay_mix(log, mic_out, app_track, recording.MIX_FRAME, recording.RING_CAPACITY)
+    exp16 = np.trunc(np.clip(expect, -1.0, 1.0) * 32767.0)
+    got16 = np.round(rec_audio * 32768.0)
+    lsb = int(np.abs(got16[:, 0] - exp16).max()) if got16.shape[0] == exp16.size else None
+    trims = [(nm, k) for nm, op, k in log if op == "trim"]
+    app_used = sum(k for nm, op, k in log if nm == "app" and op == "pop")
+    levels = [p for e, p in bus.history if e == "microphone-level"]
+    timing = [p for e, p in bus.history if e == "stage-timing"]
+    print(f"[9b] MonitoringEngine (realtime off) on a {MON_SECONDS} s 48 kHz device -> mic_tap -> "
+          f"recording with a FileSource app track: wall {wall:.2f} s, monitor output "
+          f"{mic_out.size} samples, {len(levels)} microphone-level and {len(timing)} stage-timing "
+          f"events (max_ms {[t['max_ms'] for t in timing]}, budget "
+          f"{timing[0]['budget_ms'] if timing else None} ms); host tier: "
+          f"{'native C++ (g++)' if runtime.available() else 'Python fallback'}; launches "
+          f"{launches}")
+    print(f"[9b] recording {out_path.name}: {fmt.sample_rate if fmt else None} Hz, "
+          f"{fmt.num_channels if fmt else None} channels, {fmt.bits_per_sample if fmt else None} "
+          f"bits, {rec_audio.shape[0]} frames, {app_used} app samples mixed; host replay of the "
+          f"mix from {len(log)} logged ring operations ({len(trims)} desync trims "
+          f"{trims[:4]}): max {lsb} LSB (tol {I16_TOL}); L == R: "
+          f"{bool(np.array_equal(rec_audio[:, 0], rec_audio[:, 1]))}")
+    if out_path != wav or fmt is None or (rec_sr, fmt.num_channels, fmt.bits_per_sample) != \
+            (48000, 2, 16):
+        fail(f"the recording is not 48 kHz stereo s16: {fmt}")
+    if not np.array_equal(rec_audio[:, 0], rec_audio[:, 1]):
+        fail("the recording's channels differ")
+    if mic_out.size != n or not np.isfinite(mic_out).all():
+        fail(f"the monitor gave {mic_out.size} samples for {n}")
+    if lsb is None or lsb > I16_TOL:
+        fail(f"the recording differs from the host replay of the mix: {lsb} LSB, "
+             f"{got16.shape[0]} frames for {exp16.size}")
+    if not levels or not timing or timing[0]["budget_ms"] != 10.0:
+        fail("the monitor emitted no microphone-level or stage-timing event")
+    return launches
+
+
+def frame_latency(torch, pipeline, params, dev, rng, card: str) -> None:
+    """Phase 9c, 9d, 9e: push_block's per-frame latency through the graph
+    (the gate: median within the 10 ms frame budget), the graphed step's
+    alone and the eager step's for the record, push_block's again under a
+    batch load, and the graph's kernels under torch.profiler."""
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from crispy_tpu_torch.dsp.rnnoise import ops_kernels as ok
+    from crispy_tpu_torch.dsp.rnnoise import rnn_kernels as rk
+    from crispy_tpu_torch.dsp.rnnoise.graphed import GraphedBlockStep
+    from crispy_tpu_torch.engine import denoiser
+
+    FR = pipeline.FRAME
+    proc = denoiser.RnnNoiseProcessor(48000, 48000, 1.0, params=params)  # the card
+    xs = speechlike((LAT_FRAMES + 1) * FR, rng, 150.0)
+    proc.push_block(xs[:FR])
+
+    def latencies():
+        out = []
+        for i in range(1, LAT_FRAMES + 1):
+            t0 = time.perf_counter()
+            proc.push_block(xs[i * FR: (i + 1) * FR])
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    lat = latencies()
+    bare = GraphedBlockStep(params, 1, 1, dev)
+    step_ms = []
+    for i in range(LAT_FRAMES):
+        t0 = time.perf_counter()
+        bare.step(xs[None, i * FR: (i + 1) * FR])
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    state = pipeline.init_state(1, dev)
+    eager_ms = []
+    with torch.no_grad():
+        for i in range(EAGER_FRAMES):
+            t0 = time.perf_counter()
+            blk = torch.from_numpy(xs[None, i * FR: (i + 1) * FR]).to(dev)
+            state, o, _ = pipeline.denoise_block(params, state, blk)
+            o.cpu()
+            eager_ms.append((time.perf_counter() - t0) * 1e3)
+    med = float(np.median(lat))
+    print(f"[9c] RnnNoiseProcessor.push_block, one 480-sample frame through the graph: "
+          f"{percentiles(lat)}; GraphedBlockStep.step alone (copy in, replay, copy out): "
+          f"{percentiles(step_ms)}; the eager step (upload, denoise_block, download), for the "
+          f"record: {percentiles(eager_ms[5:])}; budget 10 ms [{card}]")
+    if not med <= 10.0:
+        fail(f"the graphed per-frame median {med:.3f} ms exceeds the 10 ms frame budget")
+
+    batch = np.tile(np.stack([speechlike(F_MAIN * FR, rng, 90.0 + s) for s in range(S_MAIN)]),
+                    (1, 4))
+    stop, blocks = threading.Event(), [0]
+
+    def load():
+        while not stop.is_set():
+            pipeline.denoise_batch(batch, params=params)
+            blocks[0] += 4
+
+    th = threading.Thread(target=load, daemon=True)
+    th.start()
+    time.sleep(1.0)
+    lat_load = latencies()
+    stop.set()
+    th.join(timeout=120)
+    print(f"[9d] the same under load (denoise_batch S={S_MAIN}, F={F_MAIN} in another thread, "
+          f"{blocks[0]} blocks during the run): {percentiles(lat_load)} [{card}]")
+
+    before = (rk.nn_scan.launches, rk.rd_scan.launches, ok.pitch_window_gather.launches)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(PROFILE_FRAMES):
+            proc.push_block(xs[i * FR: (i + 1) * FR])
+        torch.cuda.synchronize()
+    rose = (rk.nn_scan.launches - before[0], rk.rd_scan.launches - before[1],
+            ok.pitch_window_gather.launches - before[2])
+    evs = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    by_name = {k: sum(e.count for e in evs if k in e.key)
+               for k in ("nn_scan_resident_kernel", "rd_scan_kernel", "pitch_gather_kernel")}
+    copies = sum(e.count for e in evs if "Memcpy" in e.key or "Memset" in e.key)
+    n_kern = sum(e.count for e in evs) - copies
+    dev_ms = sum(e.self_device_time_total for e in evs) / 1e3
+    print(f"[9e] torch.profiler over {PROFILE_FRAMES} replays: {by_name}; "
+          f"{n_kern / PROFILE_FRAMES:.1f} kernels and {copies / PROFILE_FRAMES:.1f} copies a "
+          f"frame, device time {dev_ms / PROFILE_FRAMES:.4f} ms a frame; the counters of K1, "
+          f"K2, K3 rose by {rose} [{card}]")
+    if any(c != PROFILE_FRAMES for c in by_name.values()) or rose != (PROFILE_FRAMES,) * 3:
+        fail(f"the profile or the counters do not show K1-K3 once a replay: {by_name}, {rose}")
+
+
+def config2(torch, dev, tmp: Path, rng, card: str) -> None:
+    """Phase 9f: the resample command on a 44.1 kHz WAV, and config 2 on the
+    card: CFG2_SECONDS of 44.1 kHz resampled to 48 kHz, added to a 48 kHz
+    track and stacked dual mono, by CUDA events (printed only)."""
+    import io
+
+    from crispy_tpu_torch import cli
+    from crispy_tpu_torch.dsp.resample import make_resampler
+    from crispy_tpu_torch.io import wav as wavio
+
+    src, dst = tmp / "in441.wav", tmp / "out48.wav"
+    wavio.write_wav(src, np.stack([speechlike(441000, rng, 120.0, sr=44100),
+                                   speechlike(441000, rng, 180.0, sr=44100)], axis=1), 44100)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        rc = cli.main(["resample", str(src), str(dst), "--rate", "48000"])  # the card
+    t_cli = time.perf_counter() - t0
+    r48, sr48 = wavio.read_wav(dst)
+    if rc != 0 or sr48 != 48000 or r48.shape != (480000, 2):
+        fail(f"the resample command gave rc {rc}, {sr48} Hz, shape {r48.shape}")
+    mic44 = torch.from_numpy((rng.standard_normal(CFG2_SECONDS * 44100) * 0.3)
+                             .astype(np.float32)).to(dev)
+    app48 = torch.from_numpy((rng.standard_normal(CFG2_SECONDS * 48000) * 0.3)
+                             .astype(np.float32)).to(dev)
+    res = make_resampler(44100, 48000, dev)
+
+    def mix():
+        mic48 = res(mic44)
+        m = min(mic48.numel(), app48.numel())
+        mixed = mic48[:m] + app48[:m]
+        return torch.stack([mixed, mixed], dim=1)  # dual mono (recording.rs R3)
+
+    shape = tuple(mix().shape)
+    ms = cuda_ms(mix, 5)
+    print(f"[9f] resample command on a 10 s 44.1 kHz stereo WAV, to 48 kHz on the card: "
+          f"{t_cli:.2f} s wall, said {said.getvalue().strip()}; config 2 on the card "
+          f"({CFG2_SECONDS} s of 44.1 kHz to 48 kHz, added to a 48 kHz track, dual mono "
+          f"{shape}): {ms:.3f} ms (CUDA events, mean of 5) = {CFG2_SECONDS * 1e3 / ms:.0f}x "
+          f"realtime [{card}]")
+
+
 def main() -> int:
     # The run uses one card: show torch only the first visible one, so the
     # count it reports is the count it used.
@@ -747,6 +1198,8 @@ def main() -> int:
     # --- 2: kernels against their plain versions --------------------------
     with torch.no_grad():
         rows = kernel_phase(torch, pipeline, rk, ok, fk, params, dev)
+        monitoring_shape_lines(torch, pipeline, rk, ok, params, dev,
+                               np.random.default_rng(SEED + 3))
 
     # --- 3 and 4: the slice through its entry points, on each spectra path ---
     rng = np.random.default_rng(SEED + 1)
@@ -893,6 +1346,23 @@ def main() -> int:
             e2e_phase(torch, dev, ggml, Path(tmp), wrng, card)
             print(f"[8] phases 6, 7, 8 took {t1 - t0:.1f}, {t2 - t1:.1f}, "
                   f"{time.perf_counter() - t2:.1f} s")
+
+    # --- 9: live monitoring and recording ---------------------------------
+    mrng = np.random.default_rng(SEED + 4)
+    t0 = time.perf_counter()
+    graph_vs_eager(torch, pipeline, params, model, dev, mrng)
+    with tempfile.TemporaryDirectory() as tmp:
+        with spectra_path("off"):
+            mon_launches = monitor_and_record(Path(tmp), mrng, kernels)
+        for name in ("nn_scan", "rd_scan", "pitch_window_gather"):
+            if mon_launches[name] < MON_SECONDS * 100:
+                fail(f"kernel {name}: {mon_launches[name]} launches on the monitoring path for "
+                     f"{MON_SECONDS * 100} frames")
+        frame_latency(torch, pipeline, params, dev, mrng, card)
+        config2(torch, dev, Path(tmp), mrng, card)
+    print(f"[9] phase 9 took {time.perf_counter() - t0:.1f} s")
+    for name, c in mon_launches.items():
+        launches[name] += c
 
     for r in rows:
         r["launches"] = launches[r["name"]]

@@ -8,15 +8,20 @@ at first use by ``_build.py``). It imports neither ``jax`` nor anything of
 
   device   device resolution (CUDA unless told otherwise) and TF32 off
   api/     the in-process event bus
-  dsp/     the RNNoise pipeline and its kernels, the Whisper log-mel, the
-           resampler (host and device)
-  engine/  file and array denoising, file transcription
-  io/      the WAV codec
+  dsp/     the RNNoise pipeline, its kernels and its single-frame step as a
+           CUDA graph, the Whisper log-mel, the resamplers (streaming on the
+           host, polyphase on the host or the device)
+  engine/  the streaming NS processors and live monitoring, the recording
+           mixer and its CRUD, file and array denoising, file transcription
+  io/      the WAV codec and the incremental stereo writer
   models/  Whisper (encoder, decoder, decoding, weights, tokenizer) and the
            model catalog
+  runtime  the C++ host tier (rings, mixer step, resampler, WAV writer, RMS)
+           bound with ctypes, built with g++ at first use
   utils/   the user-data layout and stage timers
-  cli      ``python -m crispy_tpu_torch.cli denoise IN OUT``, ``bench`` and
-           ``transcribe IN --model ID``
+  cli      ``python -m crispy_tpu_torch.cli denoise IN OUT``, ``bench``,
+           ``resample IN OUT --rate R``, ``recordings list|rename|delete``
+           and ``transcribe IN --model ID``
 """
 
 __version__ = "0.1.0"

@@ -3,16 +3,21 @@
   python -m crispy_tpu_torch.cli denoise IN.wav OUT.wav [--ns-model rnnoise]
                                                           RNNoise on the card
   python -m crispy_tpu_torch.cli bench [--streams N]      denoise throughput
+  python -m crispy_tpu_torch.cli resample IN.wav OUT.wav --rate R
+                                                          polyphase rate conversion
+  python -m crispy_tpu_torch.cli recordings list|rename|delete [PATH] [NAME]
+                                                          recordings CRUD (host)
   python -m crispy_tpu_torch.cli transcribe IN.wav --model ID [--language L]
                                   [--output F]           Whisper speech-to-text
 
 ``CRISPY_FUSED_SPECTRA=on`` runs denoise and bench through the
 fused-spectra kernels (K4-K6) in place of the FFTs. ``transcribe`` loads
 the model from ``<data root>/Models`` (``CRISPY_DATA_DIR``, else
-``~/Documents/Crispy``) under its catalog file name.
+``~/Documents/Crispy``) under its catalog file name; ``recordings`` works on
+``<data root>/Recordings``.
 
-All run on the CUDA card by default and fail without one; ``--device cpu``
-runs the plain PyTorch path instead.
+denoise, bench, resample and transcribe run on the CUDA card by default and
+fail without one; ``--device cpu`` runs the plain PyTorch path instead.
 """
 
 from __future__ import annotations
@@ -136,6 +141,38 @@ def _profile(params, state, block, steps: int, dev) -> dict:
     }
 
 
+def _cmd_resample(args) -> int:
+    """Each channel through the polyphase conv on the device, fetched back and
+    written as 16-bit PCM (the JAX CLI's output and JSON line)."""
+    import numpy as np
+
+    from .device import resolve_device
+    from .dsp.resample import resample_poly
+    from .io import wav as wavio
+
+    dev = resolve_device(args.device)
+    audio, sr = wavio.read_wav(args.input)
+    out = np.stack([resample_poly(audio[:, c], sr, args.rate, device=dev).cpu().numpy()
+                    for c in range(audio.shape[1])], axis=1)
+    wavio.write_wav(args.output, out, args.rate)
+    print(json.dumps({"output": str(args.output), "from_rate": sr, "to_rate": args.rate}))
+    return 0
+
+
+def _cmd_recordings(args) -> int:
+    from .engine import recording as rec
+
+    if args.action == "list":
+        for r in rec.get_recordings():
+            dur = f"{r['duration_seconds']:.1f}s" if r["duration_seconds"] else "?"
+            print(f"{r['name']:40s} {dur:>8} {r['size']:>10} B  {r['path']}")
+    elif args.action == "rename":
+        print(rec.rename_recording(args.path, args.new_name))
+    elif args.action == "delete":
+        rec.delete_recording(args.path)
+    return 0
+
+
 def _cmd_transcribe(args) -> int:
     from .api.events import EventBus
     from .engine import transcription as tr
@@ -179,6 +216,19 @@ def main(argv=None) -> int:
     b.add_argument("--profile", action="store_true",
                    help="add device time by kernel (torch.profiler; card only)")
     b.set_defaults(fn=_cmd_bench)
+
+    r = sub.add_parser("resample", help="high-quality sample rate conversion")
+    r.add_argument("input", type=Path)
+    r.add_argument("output", type=Path)
+    r.add_argument("--rate", type=int, required=True)
+    r.add_argument("--device", default=None, help="default: cuda")
+    r.set_defaults(fn=_cmd_resample)
+
+    rec = sub.add_parser("recordings", help="recordings CRUD")
+    rec.add_argument("action", choices=["list", "rename", "delete"])
+    rec.add_argument("path", nargs="?")
+    rec.add_argument("new_name", nargs="?")
+    rec.set_defaults(fn=_cmd_recordings)
 
     t = sub.add_parser("transcribe", help="Whisper speech-to-text on a recording")
     t.add_argument("input", type=Path)

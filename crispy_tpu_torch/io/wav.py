@@ -1,12 +1,13 @@
 """WAV codec: RIFF chunk-walking reader and s16/f32 writer.
 
 The PyTorch port's own copy of the parts of ``crispy_tpu/io/wav.py`` that
-file denoising and transcription use (``read_format``, ``read_wav``,
-``read_wav_mono``, ``write_wav``); the port
-imports nothing of the JAX package. The reader walks RIFF chunks tolerant of
-LIST/INFO chunks and truncated files (src-tauri/src/commands/recording.rs:
-384-460); the writer clamps and scales by 32767 like the reference's
-recording writer (src-tauri/src/recording.rs:108-112). All host-side NumPy.
+file denoising, transcription and recording use (``read_format``,
+``get_wav_duration``, ``read_wav``, ``read_wav_mono``, ``write_wav`` and the
+incremental stereo writer ``WavWriter``); the port imports nothing of the
+JAX package. The reader walks RIFF chunks tolerant of LIST/INFO chunks and
+truncated files (src-tauri/src/commands/recording.rs:384-460); the writers
+clamp and scale by 32767 like the reference's recording writer
+(src-tauri/src/recording.rs:108-112). All host-side NumPy.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import numpy as np
 PathLike = Union[str, Path]
 
 SAMPLE_RATE = 48000  # recording.rs:8
+CHANNELS = 2  # recording.rs:9
 
 
 @dataclass
@@ -80,6 +82,19 @@ def read_format(path: PathLike) -> Optional[WavFormat]:
             return _walk_chunks(f)
     except OSError:
         return None
+
+
+def get_wav_duration(path: PathLike) -> Optional[float]:
+    """Duration in seconds from the header, or None if unparseable
+    (commands/recording.rs:384-460)."""
+    fmt = read_format(path)
+    if fmt is None or fmt.data_size == 0:  # the reference's parser rejects
+        return None                        # empty data chunks (recording.rs:427)
+    bytes_per_sample = fmt.bits_per_sample // 8
+    if bytes_per_sample == 0:
+        return None
+    num_frames = fmt.data_size // (bytes_per_sample * fmt.num_channels)
+    return num_frames / fmt.sample_rate
 
 
 def _decode(raw: bytes, fmt: WavFormat) -> np.ndarray:
@@ -171,3 +186,62 @@ def write_wav(
         f.write(struct.pack("<I", len(payload)))
         f.write(payload)
     return Path(path)
+
+
+class WavWriter:
+    """Incremental stereo s16 writer (recording.rs:78-134).
+
+    ``write_samples(left, right)`` interleaves two equal-length float32 channel
+    blocks; ``finalize()`` patches the RIFF sizes and closes the file.
+    """
+
+    def __init__(self, output_path: PathLike, sample_rate: int = SAMPLE_RATE,
+                 channels: int = CHANNELS):
+        self.output_path = Path(output_path)
+        self.sample_rate = sample_rate
+        self.channels = channels
+        self._f = open(self.output_path, "wb")
+        self._data_bytes = 0
+        self._finalized = False
+        # Placeholder header; sizes patched in finalize().
+        self._f.write(b"RIFF" + struct.pack("<I", 36) + b"WAVE")
+        self._f.write(b"fmt ")
+        self._f.write(
+            struct.pack(
+                "<IHHIIHH", 16, 1, channels, sample_rate,
+                sample_rate * channels * 2, channels * 2, 16,
+            )
+        )
+        self._f.write(b"data" + struct.pack("<I", 0))
+
+    def write_samples(self, left: np.ndarray, right: np.ndarray) -> None:
+        left = np.asarray(left, dtype=np.float32)
+        right = np.asarray(right, dtype=np.float32)
+        if left.shape != right.shape or left.ndim != 1:
+            raise ValueError("Left and right channel length mismatch")
+        # recording.rs:108-112 conversion. NOTE: the reference casts with Rust
+        # `as i16` (truncation toward zero); we match that exactly.
+        interleaved = np.empty(left.size * 2, dtype=np.float32)
+        interleaved[0::2] = left
+        interleaved[1::2] = right
+        pcm = np.trunc(np.clip(interleaved, -1.0, 1.0) * 32767.0).astype("<i2")
+        payload = pcm.tobytes()
+        self._f.write(payload)
+        self._data_bytes += len(payload)
+
+    def finalize(self) -> Path:
+        if self._finalized:
+            return self.output_path
+        self._f.seek(4)
+        self._f.write(struct.pack("<I", 36 + self._data_bytes))
+        self._f.seek(40)
+        self._f.write(struct.pack("<I", self._data_bytes))
+        self._f.close()
+        self._finalized = True
+        return self.output_path
+
+    def __enter__(self) -> "WavWriter":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.finalize()

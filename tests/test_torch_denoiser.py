@@ -116,6 +116,32 @@ class TestNoFallback:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tp.make_params()
 
+    def test_streaming_entry_points_raise_without_a_card(self, monkeypatch, tmp_path,
+                                                         capsys):
+        """The monitoring path's entry points and the resample command also
+        mean the card by default; device="cpu" (or --device cpu) runs them
+        on the CPU."""
+        from crispy_tpu_torch.dsp.rnnoise.graphed import GraphedBlockStep
+        from crispy_tpu_torch.engine.monitoring import MonitoringEngine
+
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tden.RnnNoiseProcessor(48000, 48000, 1.0)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tden.NsState("rnnoise", 48000, 48000, 1.0)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            MonitoringEngine()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            GraphedBlockStep(tp.make_params(tw.deterministic_test_model(), "cpu"))
+        src, dst = tmp_path / "in.wav", tmp_path / "out.wav"
+        twav.write_wav(src, speechlike(4410, seed=36, sr=44100), 44100)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(["resample", str(src), str(dst), "--rate", "48000"])
+        assert cli.main(["resample", str(src), str(dst), "--rate", "48000",
+                         "--device", "cpu"]) == 0
+        assert json.loads(capsys.readouterr().out.splitlines()[-1])["to_rate"] == 48000
+        assert tden.NsState("rnnoise", 48000, 48000, 1.0, device="cpu").device.type == "cpu"
+
 
 class TestCli:
     def test_denoise_and_bench_on_cpu(self, tmp_path, capsys, monkeypatch):
