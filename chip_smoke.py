@@ -14,9 +14,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
      twice: its resident variant on the builtin weights and its f32 variant
      on the same weights moved off the fp16 grid; K2 bit-exact on random
      rows and on rows heavy in continuations, with its own device time
-     (torch.profiler) beside its design floor; then K1 (resident), K2 and
-     K3 at the monitoring shape, S=1, F=1, at the same tolerances, timed by
-     CUDA events and by torch.profiler;
+     (torch.profiler) beside its design floor; then K1 (resident), K2, K3
+     and K4-K6 at the monitoring shape, S=1, F=1, at the same tolerances,
+     timed by CUDA events and by torch.profiler;
   3. the default (FFT) path: a 2-channel 30 s 48 kHz 16-bit WAV through
      ``denoise_file`` (int16 wire) and the same samples through
      ``denoise_array`` (f32), on the card, held against the port's CPU path,
@@ -72,8 +72,28 @@ Phases, each printed on its own lines; any failure exits non-zero:
      the card (10 min of 44.1 kHz to 48 kHz, added to a 48 kHz track, dual
      mono) by CUDA events (printed only).
 
-The Whisper phases run no hand-written kernel (the JAX package's Whisper
-has no Pallas kernel), so they add no row to the kernels line.
+ 10. the native ASR families, from prepared bundles (``params.npz`` from the
+     port's ``init_random`` at seed 0, ``config.json``, a ``tokenizer.model``
+     from ``build_model_bytes``) in a temporary model directory: (a)
+     parakeet-tdt-0.6b at its published widths through ``load_engine`` on
+     the card, held against the port's CPU path on one 30 s chunk (NeMo
+     features within 1e-4 of their max, the count of frames whose valid bit
+     differs, the encoder output within 1e-3 of its max, the TDT decisions
+     step by step), then B=8 chunks: the frontend, encoder and decode loop
+     by CUDA events, the loop's iterations, its launches per iteration and
+     the device's busy share (torch.profiler), the engine's RTF; (b) a 5 min
+     48 kHz WAV through ``run_transcription`` and that engine, with text for
+     every chunk; (c) gigaam (the JAX package's bundle-test widths),
+     canary-180m-flash, moonshine-base and sense-voice-small, each on the
+     card against the CPU path on two of its B=8 chunks (every CTC frame's
+     argmax, the greedy tokens, the texts) and its RTF, and for canary and
+     moonshine the launches a decode step and the device's busy share in
+     their greedy loops (torch.profiler). A decision that
+     differs card vs CPU passes only at a near-tie (the CPU's top-two margin
+     below 1e-4 of the step's largest |logit|); each is printed and counted.
+
+The Whisper and ASR phases run no hand-written kernel (the JAX package's
+models have no Pallas kernel), so they add no row to the kernels line.
 
 Then one JSON line with every kernel's numbers (launches from phases 3, 4
 and 9b), and as the last line
@@ -91,6 +111,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import List, Tuple
 
 import numpy as np
 
@@ -137,6 +158,14 @@ LAT_FRAMES = 1000  # phase 9c, 9d: frames timed through push_block
 EAGER_FRAMES = 60  # phase 9c: frames through the eager step (the first 5 not counted)
 PROFILE_FRAMES = 20  # phase 9e: replays under torch.profiler
 CFG2_SECONDS = 600  # phase 9f: config 2's 10 min of 44.1 kHz
+
+ASR_BATCH = 8  # phase 10: 30 s chunks a batch on the card
+ASR_SECONDS = 30
+ASR_E2E_SECONDS = 300  # phase 10b's WAV: 10 chunks
+FEAT_RTOL = 1e-4  # NeMo features card vs CPU, x their max: cuFFT against pocketfft
+PK_ENC_RTOL = 1e-3  # the 24-layer encoder's output card vs CPU, x its max
+TIE_RTOL = 1e-4  # a divergent decision passes below this top-two margin, x max|logit|
+PROFILE_STEPS = 32  # phase 10c: new tokens in the profiled canary and moonshine loops
 
 
 def fail(msg: str) -> None:
@@ -727,11 +756,12 @@ def e2e_phase(torch, dev, path: Path, tmp: Path, rng, card: str) -> None:
         fail(f"a chunk batch was not a tensor on the card: {seen}")
 
 
-def monitoring_shape_lines(torch, pipeline, rk, ok, params, dev, rng) -> None:
+def monitoring_shape_lines(torch, pipeline, rk, ok, fk, params, dev, rng) -> None:
     """Phase 2 at the monitoring shape, one stream and one frame a step
-    (S=1, F=1): K1 (resident), K2 and K3 against their plain versions at the
-    tolerances above, timed by CUDA events over back-to-back calls (host
-    launch cost included) and by torch.profiler (the kernel's own time)."""
+    (S=1, F=1): K1 (resident), K2, K3 and K4-K6 (as the fused monitoring
+    path runs them) against their plain versions at the tolerances above,
+    timed by CUDA events over back-to-back calls (host launch cost
+    included) and by torch.profiler (the kernel's own time)."""
     from crispy_tpu_torch.dsp.rnnoise import rd_rows
 
     S, F = 1, 1
@@ -760,6 +790,37 @@ def monitoring_shape_lines(torch, pipeline, rk, ok, params, dev, rng) -> None:
                           device=dev)
     k3_err = float((ok.pitch_window_gather(ext, starts)
                     - ok.pitch_window_gather_reference(ext, starts)).abs().max())
+    # K4-K6 as the fused monitoring path runs them, one frame a launch
+    FR = pipeline.FRAME
+    sext = torch.from_numpy(rng.standard_normal((S, pipeline.HIST + 1 + F * FR))
+                            .astype(f32) * SPEC_SCALE).to(dev)
+    ext_a = sext[:, 1 + pipeline.HIST - FR:]
+    wins = torch.from_numpy(rng.standard_normal((S, F, pipeline.WIN)).astype(f32)
+                            * SPEC_SCALE).to(dev)
+    mem = torch.from_numpy(rng.standard_normal((S, FR)).astype(f32) * SPEC_SCALE).to(dev)
+    dft_pad, band = params["dft_fwd_pad"], params["band_e_pad"]
+    inva, invb = params["dft_inv_a"], params["dft_inv_b"]
+    Yin = fk.fwd_spectrum_bands_reference(ext_a, dft_pad, band, F)[0].contiguous()
+    spectra = (("fwd_spectrum_bands", "spectrum_bands_kernel",
+                lambda: fk.fwd_spectrum_bands(ext_a, dft_pad, band, F),
+                lambda: fk.fwd_spectrum_bands_reference(ext_a, dft_pad, band, F)),
+               ("win_spectrum_bands", "spectrum_bands_kernel",
+                lambda: fk.win_spectrum_bands(wins, dft_pad, band),
+                lambda: fk.win_spectrum_bands_reference(wins, dft_pad, band)),
+               ("inv_spectrum_ola", "inv_ola_kernel",
+                lambda: fk.inv_spectrum_ola(Yin, inva, invb, mem),
+                lambda: fk.inv_spectrum_ola_reference(Yin, inva, invb, mem)))
+    spec_errs = {}
+    for name, _, kern, plain in spectra:
+        (a, b), (ra, rb) = kern(), plain()
+        torch.cuda.synchronize()
+        # Y (or out) within SPEC_TOL of its max; Ex relative EX_RTOL (or new_mem as out)
+        e1 = float((a - ra).abs().max()) / float(ra.abs().max())
+        e2 = (float((b - rb).abs().max()) / float(rb.abs().max()) if name == "inv_spectrum_ola"
+              else float(((b - rb).abs() / rb.abs()).max()))
+        spec_errs[name] = (e1, e2)
+        if not (e1 <= SPEC_TOL and e2 <= (SPEC_TOL if name == "inv_spectrum_ola" else EX_RTOL)):
+            fail(f"{name} differs from its plain version at S=1, F=1: {e1}, {e2}")
     cases = (("nn_scan", "nn_scan_resident_kernel", k1_err, f"tol {K1_TOL}",
               lambda: rk.nn_scan(params, state, feats, silence),
               lambda: rk.nn_scan_reference(params, state, feats, silence)),
@@ -768,6 +829,9 @@ def monitoring_shape_lines(torch, pipeline, rk, ok, params, dev, rng) -> None:
              ("pitch_window_gather", "pitch_gather_kernel", k3_err, "exact required",
               lambda: ok.pitch_window_gather(ext, starts),
               lambda: ok.pitch_window_gather_reference(ext, starts)))
+    cases += tuple((name, kname, spec_errs[name][0],
+                    f"x its max, tol {SPEC_TOL}; second output {spec_errs[name][1]:.3e}",
+                    kern, plain) for name, kname, kern, plain in spectra)
     for name, kname, err, tol, kern, plain in cases:
         ms = cuda_ms(kern, 200)
         dms = device_ms(kern, 50, kname)
@@ -1148,6 +1212,414 @@ def config2(torch, dev, tmp: Path, rng, card: str) -> None:
           f"realtime [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the native ASR families
+# ---------------------------------------------------------------------------
+
+def asr_chunks(rng, B: int) -> np.ndarray:
+    """B speech-like 30 s chunks at 16 kHz, each on its own pitch."""
+    return np.stack([speechlike(ASR_SECONDS * 16000, rng, 95.0 + 23.0 * b, sr=16000)
+                     for b in range(B)])
+
+
+def near_tie(ties: list, family: str, where: str, cpu_logits, card_pick: int,
+             cpu_pick: int) -> None:
+    """A card decision that differs from the CPU path's passes only at a
+    near-tie: the CPU's top-two margin at that step below TIE_RTOL of the
+    step's largest |logit|. Printed and counted."""
+    lg = np.asarray(cpu_logits, np.float64)
+    top2 = np.sort(lg)[-2:]
+    ratio = float((top2[1] - top2[0]) / np.abs(lg).max())
+    print(f"[10] {family}: a decision differs card vs CPU at {where}: card {card_pick}, CPU "
+          f"{cpu_pick}; CPU top-two margin {ratio:.3e} of the step's largest |logit| "
+          f"(passes below {TIE_RTOL})")
+    if not ratio < TIE_RTOL:
+        fail(f"{family}: the card's decision at {where} differs from the CPU's off a near-tie")
+    ties.append((family, where, ratio))
+
+
+def check_picks(ties: list, family: str, card_ids, cpu_ids, cpu_logits,
+                independent: bool) -> bool:
+    """Rows of decisions card vs CPU, with the CPU logits behind each
+    [B, steps, V]. CTC frames are independent decisions: every differing
+    frame must be a near-tie. Greedy tokens feed the next step: the first
+    differing step must be, the steps after it follow other inputs. Returns
+    whether all agree."""
+    same = True
+    for b, (c, h) in enumerate(zip(card_ids, cpu_ids)):
+        diff = np.nonzero(np.asarray(c) != np.asarray(h))[0]
+        for s in diff if independent else diff[:1]:
+            near_tie(ties, family, f"row {b} step {int(s)}", cpu_logits[b, s], int(c[s]),
+                     int(h[s]))
+            same = False
+    return same
+
+
+def tdt_trace(pk, model, enc):
+    """The TDT loop step by step with the host reading the end each
+    iteration: the state and each step's (token, duration) logits."""
+    s = pk.tdt_init(model, enc, 256)
+    steps = []
+    while bool((s["t"] < s["T"]).any()) and len(steps) < s["T"] + 256:
+        tl, dl = pk.tdt_step(model, s)
+        steps.append((tl[0].cpu().numpy(), dl[0].cpu().numpy()))
+    return s, steps
+
+
+@contextlib.contextmanager
+def recorded(module, name: str):
+    """Every return of ``module.name`` while the block runs, in a list: what
+    an engine's own calls computed, with nothing run again."""
+    fn, out = getattr(module, name), []
+
+    def rec(*args, **kwargs):
+        out.append(fn(*args, **kwargs))
+        return out[-1]
+
+    setattr(module, name, rec)
+    try:
+        yield out
+    finally:
+        setattr(module, name, fn)
+
+
+def profile_call(torch, fn) -> dict:
+    """One call of fn under torch.profiler: kernel launches, device time,
+    wall time (host clock, synchronised)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    evs = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    kernels = [e for e in evs if not e.key.startswith(("Memcpy", "Memset"))]
+    dev_ms = sum(e.self_device_time_total for e in evs) / 1e3
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:5]
+    return {"launches": sum(e.count for e in kernels), "device_ms": dev_ms,
+            "wall_ms": wall_ms, "busy_share": dev_ms / wall_ms,
+            "top": [(e.key[:60], round(e.self_device_time_total / 1e3, 3), e.count)
+                    for e in top]}
+
+
+def engine_rtf(torch, eng, x) -> Tuple[float, List[str]]:
+    """Host wall of one transcribe_batch call on x (after a warm-up call) over
+    the audio it holds, and its texts."""
+    eng.transcribe_batch(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    texts = eng.transcribe_batch(x)
+    wall = time.perf_counter() - t0
+    return wall / (x.shape[0] * x.shape[1] / 16000), texts
+
+
+def write_bundle(path: Path, params: dict, config: dict, pieces=None, types=None) -> None:
+    from crispy_tpu_torch.models.spm import build_model_bytes
+
+    path.mkdir(parents=True)
+    np.savez(path / "params.npz", **params)
+    (path / "config.json").write_text(json.dumps(config))
+    if pieces is not None:
+        (path / "tokenizer.model").write_bytes(build_model_bytes(pieces, types))
+
+
+def parakeet_cells(torch, mm, rng, card: str, ties: list) -> None:
+    """[10a] parakeet-tdt-0.6b at its published widths through load_engine on
+    the card, against the port's CPU path; [10b] run_transcription of a 5 min
+    48 kHz WAV through it."""
+    from dataclasses import asdict
+
+    from crispy_tpu_torch.api.events import EventBus
+    from crispy_tpu_torch.dsp.asr_frontend import nemo_log_mel, nemo_raw_log_mel, valid_frames
+    from crispy_tpu_torch.engine import transcription as tr
+    from crispy_tpu_torch.io import wav as wavio
+    from crispy_tpu_torch.models import parakeet as pk
+    from crispy_tpu_torch.models.spm import NORMAL, UNKNOWN
+
+    mid = "parakeet-tdt-0.6b-v2"
+    cfg = pk.CONFIGS["parakeet-tdt-0.6b"]
+    t0 = time.perf_counter()
+    params = pk.init_random(cfg, 0)
+    n_params = sum(v.size for v in params.values())
+    enc_cfg = {k: v for k, v in asdict(cfg).items() if k != "durations"}
+    write_bundle(mm.model_path(mid), params, {"encoder": enc_cfg},
+                 ["<unk>"] + [f"▁p{i}" for i in range(cfg.vocab_size - 1)],
+                 [UNKNOWN] + [NORMAL] * (cfg.vocab_size - 1))
+    del params
+    t1 = time.perf_counter()
+    eng = tr.load_engine(mid, mm)  # default device: the card
+    t2 = time.perf_counter()
+    cpu = tr.load_engine(mid, mm, device="cpu")
+    model, cpu_model = eng.model, cpu.model
+    if not next(model.parameters()).is_cuda:
+        fail("the parakeet engine did not load onto the card")
+    print(f"[10a] {mid}: {n_params / 1e6:.1f} M random f32 weights (seed 0) at its published "
+          f"widths (d={cfg.hidden_size}, {cfg.layers} layers, {cfg.heads} heads, FF "
+          f"{cfg.intermediate_size}, vocab {cfg.vocab_size}, durations {cfg.durations}): "
+          f"init + bundle {t1 - t0:.1f} s, load_engine on the card {t2 - t1:.1f} s")
+
+    # one 30 s chunk: the card against the CPU path
+    t0 = time.perf_counter()
+    x = asr_chunks(rng, ASR_BATCH)
+    xc = torch.from_numpy(x).cuda()
+    x1, x1c = torch.from_numpy(x[:1]), xc[:1]
+    fh, fc = nemo_log_mel(x1, cfg.n_mels), nemo_log_mel(x1c, cfg.n_mels)
+    feat_err = rel_err(fc, fh)
+    bits = int((valid_frames(nemo_raw_log_mel(x1c, cfg.n_mels)).cpu()
+                != valid_frames(nemo_raw_log_mel(x1, cfg.n_mels))).sum())
+    eh = pk.encode(cpu_model, fh.transpose(1, 2))
+    ec = pk.encode(model, fc.transpose(1, 2))
+    enc_err = rel_err(ec, eh)
+    sc, steps_c = tdt_trace(pk, model, ec)
+    sh, steps_h = tdt_trace(pk, cpu_model, eh)
+    toks, n, _ = pk.tdt_decode(model, ec)
+    if not (torch.equal(toks, sc["toks"]) and torch.equal(n, sc["n"])):
+        fail("the card's TDT loop differs from its own step-by-step trace")
+    diverged = None
+    for i, ((tc, dc), (th, dh)) in enumerate(zip(steps_c, steps_h)):
+        for head, lc, lh in (("token", tc, th), ("duration", dc, dh)):
+            if int(lc.argmax()) != int(lh.argmax()):
+                near_tie(ties, mid, f"iteration {i} ({head})", lh, int(lc.argmax()),
+                         int(lh.argmax()))
+                diverged = i
+                break
+        if diverged is not None:
+            break
+    same = torch.equal(sc["toks"].cpu(), sh["toks"]) and torch.equal(sc["n"].cpu(), sh["n"])
+    print(f"[10a] card vs CPU on one 30 s chunk: features max|diff| {feat_err:.3e} of their "
+          f"largest magnitude (tol {FEAT_RTOL}), valid-frame bits differing {bits} of "
+          f"{fh.shape[-1]}; encoder output {enc_err:.3e} of its largest magnitude (tol "
+          f"{PK_ENC_RTOL}); TDT {len(steps_c)} iterations on the card, {len(steps_h)} on the "
+          f"CPU, tokens and n equal {same} (n = {int(sh['n'][0])}), first divergence "
+          f"{diverged} ({time.perf_counter() - t0:.1f} s)")
+    if not (feat_err <= FEAT_RTOL and enc_err <= PK_ENC_RTOL):
+        fail(f"parakeet card vs CPU: features {feat_err}, encoder {enc_err}")
+    if diverged is None and not (same and len(steps_c) == len(steps_h)):
+        fail("parakeet TDT tokens differ card vs CPU with no divergent decision")
+
+    # B=8: the frontend, the encoder, the decode loop by CUDA events
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    eng.transcribe_batch(xc)  # warm-up
+    torch.cuda.synchronize()
+    ev[0].record()
+    feats = nemo_log_mel(xc, cfg.n_mels).transpose(1, 2)
+    ev[1].record()
+    enc = pk.encode(model, feats)
+    ev[2].record()
+    _, n8, iters = pk.tdt_decode(model, enc)
+    ev[3].record()
+    torch.cuda.synchronize()
+    fe_ms, enc_ms, dec_ms = (ev[i].elapsed_time(ev[i + 1]) for i in range(3))
+    iters = int(iters)
+    prof = profile_call(torch, lambda: pk.tdt_decode(model, enc))
+    rtf, texts = engine_rtf(torch, eng, xc)
+    audio_s = ASR_BATCH * ASR_SECONDS
+    print(f"[10a] B={ASR_BATCH} x 30 s on the card (CUDA events): frontend {fe_ms:.3f} ms, "
+          f"encoder {enc_ms:.3f} ms, TDT decode loop {dec_ms:.3f} ms over {iters} iterations "
+          f"({dec_ms / iters:.4f} ms each; host checks of the end every "
+          f"{pk.TDT_SYNC_EVERY}: {-(-iters // pk.TDT_SYNC_EVERY)} syncs), tokens per row "
+          f"{n8.tolist()}; transcribe_batch host to host RTF {rtf:.4e} ({rtf * audio_s:.3f} s "
+          f"for {audio_s} s) [{card}]")
+    print(f"[10a] torch.profiler over one decode loop at B={ASR_BATCH}: {prof['launches']} "
+          f"kernel launches = {prof['launches'] / iters:.1f} per iteration, device time "
+          f"{prof['device_ms']:.3f} ms: device busy {100 * prof['device_ms'] / dec_ms:.1f}% of "
+          f"the loop timed above ({100 * prof['busy_share']:.1f}% of its {prof['wall_ms']:.3f} "
+          f"ms under the profiler); top kernels {prof['top']}")
+    if len(texts) != ASR_BATCH or not all(texts):
+        fail(f"the parakeet engine returned empty texts: {texts}")
+
+    # [10b] a 5 min 48 kHz WAV through run_transcription and load_engine
+    sr = 48000
+    pcm = (np.clip(speechlike(ASR_E2E_SECONDS * sr, rng, 130.0, sr=sr), -1.0, 1.0)
+           * 32767.0).astype(np.int16)
+    wav = wavio.write_wav(mm.models_dir.parent / "talk10.wav", pcm, sr)
+    bus = EventBus()
+    bus.keep_history = True
+    seen, outs = [], []
+
+    def loader(model_id, m):
+        e = eng  # the engine load_engine gave in [10a], on the card
+        inner = e.transcribe_batch
+
+        def recording(chunks, language="en"):
+            seen.append((type(chunks).__name__, str(getattr(chunks, "device", "host")),
+                         tuple(chunks.shape)))
+            outs.append(inner(chunks, language=language))
+            return outs[-1]
+
+        e.transcribe_batch = recording
+        return e
+
+    tm = tr.TranscriptionManager(mm, bus=bus, engine_loader=loader)
+    t0 = time.perf_counter()
+    text = tr.run_transcription(str(wav), tm, mid)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = tm.get_state(str(wav))
+    progress = [p["progress"] for e, p in bus.history if e == "transcription-progress"]
+    stages = [(p["stage"], round(p["seconds"], 4), {k: v for k, v in p.items()
+                                                     if k not in ("stage", "seconds")})
+              for e, p in bus.history if e == "stage-timing"]
+    live = [p["chunks"] for e, p in bus.history
+            if e == "stage-timing" and p["stage"] == "transcribe-batch"]
+    print(f"[10b] run_transcription of a {ASR_E2E_SECONDS} s 48 kHz 16-bit WAV through the "
+          f"{mid} engine of [10a]: status {st.status if st else None}, wall {wall:.3f} s, RTF "
+          f"{wall / ASR_E2E_SECONDS:.3e} (the model loaded before), chunk batches {seen}, "
+          f"progress {progress}, {len(text)} characters [{card}]")
+    print(f"[10b] stage-timing events (host clock): {stages}")
+    if st is None or st.status != "completed" or tr.load_transcription_result(str(wav)) != text:
+        fail(f"parakeet run_transcription ended in {st}")
+    if sum(live) != -(-ASR_E2E_SECONDS // ASR_SECONDS) or not all(
+            all(o[:k]) for o, k in zip(outs, live)):
+        fail(f"a chunk came back without text: {live}, {[[len(t) for t in o] for o in outs]}")
+    if any(kind != "Tensor" or not d.startswith("cuda") for kind, d, _ in seen):
+        fail(f"a chunk batch was not a tensor on the card: {seen}")
+
+
+def decode_loop_profile(torch, mid: str, model, x, prompt_ids) -> None:
+    """Launches a decode step and the device's busy share in the greedy loop
+    of canary or moonshine at B=8: a greedy call of PROFILE_STEPS new tokens
+    less its encoder, under torch.profiler for the launches and the device
+    time, and again without it for the wall (the profiler's own host cost
+    would lengthen it)."""
+    from crispy_tpu_torch.dsp.asr_frontend import nemo_log_mel
+    from crispy_tpu_torch.models import canary as cn
+    from crispy_tpu_torch.models import moonshine as ms
+
+    if mid == "canary-180m-flash":
+        feats = nemo_log_mel(x, model.cfg.encoder.n_mels).transpose(1, 2)
+        prompt = torch.tensor(prompt_ids, device=x.device).expand(x.shape[0], -1)
+        calls = (lambda: cn.greedy_decode(model, feats, max_new=PROFILE_STEPS, prompt=prompt),
+                 lambda: cn.encode(model, feats))
+        steps = len(prompt_ids) + PROFILE_STEPS - 1  # the prompt's prefill included
+    else:
+        calls = (lambda: ms.greedy_decode(model, x, max_new=PROFILE_STEPS),
+                 lambda: ms.encode(model, x))
+        steps = PROFILE_STEPS  # the start token, then max_new - 1 steps
+    full, enc = (profile_call(torch, fn) for fn in calls)
+    walls = []
+    for fn in calls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    launches = full["launches"] - enc["launches"]
+    dev_ms, wall_ms = full["device_ms"] - enc["device_ms"], walls[0] - walls[1]
+    print(f"[10c] {mid} decode loop at B={x.shape[0]}, {steps} steps (a greedy call less "
+          f"its encoder): {launches / steps:.1f} launches a step (torch.profiler), "
+          f"{wall_ms / steps:.3f} ms a step (host clock), device busy "
+          f"{100 * dev_ms / wall_ms:.1f}%; encoder {walls[1]:.3f} ms; top kernels "
+          f"{full['top'][:3]}")
+
+
+def family_cells(torch, mm, rng, card: str, ties: list) -> None:
+    """[10c] one batch of 30 s chunks on the card against the CPU path for
+    gigaam, canary-180m-flash, moonshine-base and sense-voice-small."""
+    from dataclasses import asdict
+
+    from crispy_tpu_torch.dsp.asr_frontend import nemo_log_mel
+    from crispy_tpu_torch.engine import transcription as tr
+    from crispy_tpu_torch.models import canary as cn
+    from crispy_tpu_torch.models import moonshine as ms
+    from crispy_tpu_torch.models import parakeet as pk
+    from crispy_tpu_torch.models import sensevoice as sv
+    from crispy_tpu_torch.models.spm import CONTROL, NORMAL, UNKNOWN
+
+    # the GigaAM widths of the JAX package's own bundle test (tests/test_spm.py)
+    giga = dict(n_mels=64, hidden_size=64, layers=2, heads=2, kv_heads=2,
+                intermediate_size=128, sub_channels=32, sub_factor=4, vocab_size=34)
+    ccfg, mcfg, scfg = (cn.CONFIGS["canary-180m-flash"], ms.CONFIGS["moonshine-base"],
+                        sv.CONFIGS["sense-voice-small"])
+    c_pieces = (["<unk>", "<s>", "</s>", "<|en|>", "<|transcribe|>"]
+                + [f"▁c{i}" for i in range(ccfg.vocab_size - 5)])
+    c_prompt = [ccfg.bos, 3, 4, 3]
+    s_prompt = [1, 2, 3, 4]
+    families = {
+        "gigaam-v3-e2e-ctc": (
+            lambda: pk.init_random(pk.ParakeetConfig(**giga), 0),
+            {"encoder": giga, "labels": [" "] + [chr(0x430 + i) for i in range(32)] + ["ё"]},
+            None, None),
+        "canary-180m-flash": (
+            lambda: cn.init_random(ccfg, 0),
+            {"config": "canary-180m-flash", "prompt_ids": c_prompt}, c_pieces,
+            [UNKNOWN, CONTROL, CONTROL, CONTROL, CONTROL] + [NORMAL] * (ccfg.vocab_size - 5)),
+        "moonshine-base": (lambda: ms.init_random(mcfg, 0), {"config": "moonshine-base"},
+                           None, None),
+        "sense-voice-int8": (
+            lambda: sv.init_random(scfg, 0),
+            {"config": "sense-voice-small", "prompt_ids": s_prompt},
+            ["<blank>"] + [f"▁s{i}" for i in range(scfg.vocab_size - 1)],
+            [CONTROL] + [NORMAL] * (scfg.vocab_size - 1)),
+    }
+
+    def forced_logits(model, mid, x, toks):
+        """The logits behind each greedy token: the decoder teacher-forced
+        along the tokens."""
+        if mid == "canary-180m-flash":
+            feats = nemo_log_mel(x, ccfg.encoder.n_mels).transpose(1, 2)
+            prompt = torch.tensor(c_prompt).expand(x.shape[0], -1)
+            seq = torch.cat([prompt, toks[:, :-1]], dim=1)
+            return cn.decode_logits(model, seq, cn.encode(model, feats))[:, len(c_prompt) - 1:]
+        start = torch.full((x.shape[0], 1), mcfg.decoder_start)
+        return ms.decode_logits(model, torch.cat([start, toks[:, :-1]], dim=1),
+                                ms.encode(model, x))
+
+    # the call whose returns hold each engine's decisions
+    deciders = {"gigaam-v3-e2e-ctc": (pk, "ctc_logits"), "canary-180m-flash": (cn, "greedy_decode"),
+                "moonshine-base": (ms, "greedy_decode"), "sense-voice-int8": (sv, "ctc_logits")}
+    x = asr_chunks(rng, ASR_BATCH)
+    xc = torch.from_numpy(x).cuda()
+    for mid, (init, config, pieces, types) in families.items():
+        t0 = time.perf_counter()
+        params = init()
+        n_params = sum(v.size for v in params.values())
+        write_bundle(mm.model_path(mid), params, config, pieces, types)
+        del params
+        eng = tr.load_engine(mid, mm)  # default device: the card
+        cpu = tr.load_engine(mid, mm, device="cpu")
+        t1 = time.perf_counter()
+        module, fn = deciders[mid]
+        ctc = fn == "ctc_logits"
+        with recorded(module, fn) as card_out:
+            rtf, texts = engine_rtf(torch, eng, xc)
+        t2 = time.perf_counter()
+        with recorded(module, fn) as cpu_out:
+            want = cpu.transcribe_batch(x)
+        # every row's decisions: CTC frame argmax, or the greedy token ids
+        # (control ids and the eos run after a row ends included) and lengths
+        if ctc:
+            ids_c, ids_h = card_out[-1].argmax(-1).cpu().numpy(), cpu_out[-1].argmax(-1).numpy()
+            n_c = n_h = np.zeros(ASR_BATCH)
+        else:
+            (ids_c, n_c), (ids_h, n_h) = ((a.cpu().numpy(), n.cpu().numpy())
+                                          for a, n in (card_out[-1], cpu_out[-1]))
+        same = np.array_equal(ids_c, ids_h)
+        if not same:  # each row's differing decision must be a near-tie
+            lg_h = cpu_out[-1] if ctc else forced_logits(
+                cpu.model, mid, torch.from_numpy(x), torch.from_numpy(ids_h))
+            check_picks(ties, mid, ids_c, ids_h, lg_h.numpy(), independent=ctc)
+        elif not np.array_equal(n_c, n_h) or texts != want:
+            fail(f"{mid}: lengths or texts differ card vs CPU though every decision agrees")
+        what = ("frame argmax" if ctc else f"token ids and lengths (n = {n_h.tolist()})")
+        print(f"[10c] {mid}: {n_params / 1e6:.1f} M random weights (seed 0), bundle and two "
+              f"load_engine calls {t1 - t0:.1f} s; card vs CPU on all {ASR_BATCH} chunks: "
+              f"{what} {list(ids_h.shape)} equal {same}, texts equal {texts == want} (text "
+              f"lengths {[len(t) for t in want]}; CPU path {time.perf_counter() - t2:.1f} s); "
+              f"B={ASR_BATCH} x 30 s transcribe_batch host to host RTF {rtf:.4e} (two calls "
+              f"{t2 - t1:.1f} s) [{card}]")
+        del card_out, cpu_out
+        if mid in ("canary-180m-flash", "moonshine-base"):
+            decode_loop_profile(torch, mid, eng.model, xc, c_prompt)
+        if len(texts) != ASR_BATCH or not all(isinstance(t, str) for t in texts):
+            fail(f"{mid}: bad engine output")
+        del eng, cpu
+    print(f"[10c] widths: gigaam {giga}; canary {asdict(ccfg)}; moonshine {asdict(mcfg)}; "
+          f"sensevoice {asdict(scfg)}")
+
+
 def main() -> int:
     # The run uses one card: show torch only the first visible one, so the
     # count it reports is the count it used.
@@ -1198,7 +1670,7 @@ def main() -> int:
     # --- 2: kernels against their plain versions --------------------------
     with torch.no_grad():
         rows = kernel_phase(torch, pipeline, rk, ok, fk, params, dev)
-        monitoring_shape_lines(torch, pipeline, rk, ok, params, dev,
+        monitoring_shape_lines(torch, pipeline, rk, ok, fk, params, dev,
                                np.random.default_rng(SEED + 3))
 
     # --- 3 and 4: the slice through its entry points, on each spectra path ---
@@ -1363,6 +1835,21 @@ def main() -> int:
     print(f"[9] phase 9 took {time.perf_counter() - t0:.1f} s")
     for name, c in mon_launches.items():
         launches[name] += c
+
+    # --- 10: the native ASR families ----------------------------------------
+    from crispy_tpu_torch.models.registry import ModelManager
+
+    t0 = time.perf_counter()
+    ties: list = []
+    arng = np.random.default_rng(SEED + 5)
+    with tempfile.TemporaryDirectory() as tmp:
+        with tempfile.TemporaryDirectory() as data:
+            os.environ["CRISPY_DATA_DIR"] = data  # sidecars stay out of HOME
+            mm = ModelManager(models_dir=Path(tmp) / "Models")
+            parakeet_cells(torch, mm, arng, card, ties)
+            family_cells(torch, mm, arng, card, ties)
+    print(f"[10] decisions that differ card vs CPU at a near-tie: {len(ties)} {ties}; "
+          f"phase 10 took {time.perf_counter() - t0:.1f} s")
 
     for r in rows:
         r["launches"] = launches[r["name"]]

@@ -8,7 +8,7 @@
   python -m crispy_tpu_torch.cli recordings list|rename|delete [PATH] [NAME]
                                                           recordings CRUD (host)
   python -m crispy_tpu_torch.cli transcribe IN.wav --model ID [--language L]
-                                  [--output F]           Whisper speech-to-text
+                                  [--output F]           speech-to-text
 
 ``CRISPY_FUSED_SPECTRA=on`` runs denoise and bench through the
 fused-spectra kernels (K4-K6) in place of the FFTs. ``transcribe`` loads
@@ -183,7 +183,7 @@ def _cmd_transcribe(args) -> int:
     rec = str(args.input)
     try:
         text = tr.run_transcription(rec, tm, args.model, language=args.language)
-    except (ValueError, FileNotFoundError) as e:
+    except (ValueError, FileNotFoundError, NotImplementedError) as e:
         print(json.dumps({"error": str(e)}))
         return 1
     if args.output:
@@ -230,9 +230,9 @@ def main(argv=None) -> int:
     rec.add_argument("new_name", nargs="?")
     rec.set_defaults(fn=_cmd_recordings)
 
-    t = sub.add_parser("transcribe", help="Whisper speech-to-text on a recording")
+    t = sub.add_parser("transcribe", help="speech-to-text on a recording")
     t.add_argument("input", type=Path)
-    t.add_argument("--model", required=True, help="catalog model id (a whisper model)")
+    t.add_argument("--model", required=True, help="catalog model id")
     t.add_argument("--language", default="en", help="spoken language code (e.g. de, ru)")
     t.add_argument("--output", type=Path, default=None, help="default: print the text")
     t.add_argument("--device", default=None, help="default: cuda")

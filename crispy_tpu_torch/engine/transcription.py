@@ -12,8 +12,10 @@ reference's transcription stack (SURVEY §2.3):
 
 Chunks are batched and decoded together on the card; a recording that is
 not at 16 kHz is resampled there (``resample_poly(device_out=True)``) and
-its chunk batches never leave it. Of the engine types only whisper is
-ported; diarization waits for ROADMAP queue 1, item 9.
+its chunk batches never leave it. The engines: whisper, and the native
+families (parakeet TDT and CTC, gigaam, canary, moonshine, sensevoice) from
+prepared bundles; the catalog's ONNX bundles and cohere wait for the ONNX
+executor (ROADMAP queue 1, item 10), diarization for item 9.
 """
 
 from __future__ import annotations
@@ -157,25 +159,69 @@ class EngineProtocol:
         raise NotImplementedError
 
 
+def _on_device(chunks, device: torch.device) -> torch.Tensor:
+    """[B, T] chunks (an array, a list of equal-length arrays, or a tensor)
+    as f32 on device; a tensor that already lies there (run_transcription's
+    device pipeline) is never round-tripped through the host."""
+    if not isinstance(chunks, torch.Tensor):
+        chunks = torch.from_numpy(np.asarray(chunks, np.float32))
+    return torch.atleast_2d(chunks).to(device, torch.float32)
+
+
+def _onnx_only(model_id: str, what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{model_id}: {what} runs through the ONNX executor, which is not ported yet "
+        "(ROADMAP queue 1, item 10)")
+
+
+def _has_hf_checkpoint(path: Path) -> bool:
+    return (path / "model.safetensors").exists() or (path / "pytorch_model.bin").exists()
+
+
 def load_engine(model_id: str, model_manager: ModelManager, device=None) -> EngineProtocol:
-    """EngineType dispatch (managers/transcription.rs:119-172): whisper ggml
-    files and HF checkpoint dirs load into the port's Whisper on ``device``
-    (default: the card)."""
+    """EngineType dispatch (managers/transcription.rs:119-172) onto ``device``
+    (default: the card): whisper ggml files and HF checkpoint dirs; the
+    native families from prepared bundles (``params.npz`` in the JAX
+    package's flat layout, ``config.json``, the tokenizer) and, for
+    moonshine and parakeet CTC, from HF checkpoints. The catalog's ONNX
+    bundles and every cohere model need the ONNX executor, which is not
+    ported: they raise ``NotImplementedError``."""
     info = model_manager.find(model_id)
     if info is None:
         raise ValueError(f"unknown model: {model_id}")
-    if info.engine_type != "whisper":
-        raise ValueError(f"engine type '{info.engine_type}' of model {model_id} is not "
-                         "ported yet (ROADMAP queue 1, item 8)")
     path = model_manager.model_path(model_id)
     if not model_manager.is_downloaded(model_id):
         raise FileNotFoundError(f"model not downloaded: {model_id}")
+    dev = resolve_device(device)
+    kind = info.engine_type
+    if kind == "whisper":
+        return _whisper_engine(model_id, path, dev)
+    if kind == "cohere":
+        raise _onnx_only(model_id, "every cohere bundle")
+    native = {"parakeet": _parakeet_tdt_engine, "gigaam": _gigaam_engine,
+              "canary": _canary_engine, "moonshine": _moonshine_engine,
+              "sensevoice": _sensevoice_engine}
+    if kind not in native:
+        raise ValueError(f"unknown engine type '{kind}'")
+    if (path / "params.npz").exists():
+        raw = json.loads((path / "config.json").read_text())
+        return native[kind](model_id, path, raw, dict(np.load(path / "params.npz")), dev)
+    if kind == "moonshine" and _has_hf_checkpoint(path):
+        from ..models.moonshine import MoonshineModel
+
+        return _moonshine(model_id, MoonshineModel.from_hf(path, name=model_id, device=dev))
+    if kind == "parakeet" and _has_hf_checkpoint(path):
+        return _parakeet_ctc_engine(model_id, path, dev)
+    raise _onnx_only(model_id, "a bundle without params.npz")
+
+
+def _whisper_engine(model_id: str, path: Path, dev: torch.device) -> EngineProtocol:
     from ..models.whisper import WhisperModel
 
     if path.is_dir():
-        wm = WhisperModel.from_hf(path, name=model_id, device=device)
+        wm = WhisperModel.from_hf(path, name=model_id, device=dev)
     else:
-        wm = WhisperModel.from_ggml(path, name=model_id, device=device)
+        wm = WhisperModel.from_ggml(path, name=model_id, device=dev)
 
     class _WhisperEngine(EngineProtocol):
         name = model_id
@@ -188,6 +234,169 @@ def load_engine(model_id: str, model_manager: ModelManager, device=None) -> Engi
             return wm.transcribe_chunks_robust(chunks, language=language)
 
     return _WhisperEngine()
+
+
+def _moonshine_engine(model_id, path, raw, params, dev) -> EngineProtocol:
+    from ..models.carry import hf_tokenizer
+    from ..models.moonshine import CONFIGS, MoonshineConfig, MoonshineModel
+
+    cfg = CONFIGS[raw["config"]] if "config" in raw else MoonshineConfig(**raw)
+    return _moonshine(model_id, MoonshineModel(params, cfg, hf_tokenizer(path),
+                                               name=model_id, device=dev))
+
+
+def _moonshine(model_id: str, mm) -> EngineProtocol:
+    class _MoonshineEngine(EngineProtocol):
+        name = model_id
+        model = mm.model
+
+        def transcribe_batch(self, chunks, language="en"):
+            return mm.transcribe_chunks(chunks, language=language)
+
+    return _MoonshineEngine()
+
+
+def _parakeet_tdt_engine(model_id, path, raw, params, dev) -> EngineProtocol:
+    """The prepared TDT bundle (the converter's output): NeMo mel features
+    (preemphasis + slaney mel + per-feature norm, the frontend NeMo models
+    train on), the TDT loop, SentencePiece."""
+    from ..dsp.asr_frontend import nemo_log_mel
+    from ..models import parakeet as pk
+    from ..models.spm import SentencePieceVocab
+
+    cfg = pk.ParakeetConfig(**raw.get("encoder", {}))
+    net = pk.params_to_module(params, cfg, dev)
+    vocab = SentencePieceVocab.load(path / "tokenizer.model")
+
+    class _ParakeetTdtEngine(EngineProtocol):
+        name = model_id
+        model = net
+
+        def transcribe_batch(self, chunks, language="en"):
+            feats = nemo_log_mel(_on_device(chunks, dev), cfg.n_mels).transpose(1, 2)
+            toks, n = pk.tdt_greedy_decode(net, feats)
+            toks, n = toks.cpu().numpy(), n.cpu().numpy()
+            return [vocab.decode(row[:k]) for row, k in zip(toks, n)]
+
+    return _ParakeetTdtEngine()
+
+
+def _parakeet_ctc_engine(model_id: str, path: Path, dev: torch.device) -> EngineProtocol:
+    """An HF ParakeetForCTC checkpoint over the Whisper-style log-mel of the
+    chunk padded to 30 s, as the JAX package feeds it."""
+    from ..dsp.mel import log_mel_spectrogram
+    from ..models import parakeet as pk
+    from ..models.carry import hf_tokenizer, load_hf_state_dict
+
+    params, cfg = pk.from_hf_ctc_state_dict(load_hf_state_dict(path))
+    net = pk.params_to_module(params, cfg, dev)
+    tok = hf_tokenizer(path)
+
+    class _ParakeetCtcEngine(EngineProtocol):
+        name = model_id
+        model = net
+
+        def transcribe_batch(self, chunks, language="en"):
+            mel = log_mel_spectrogram(_on_device(chunks, dev), pad_to_chunk=True)
+            seqs = pk.ctc_greedy(pk.ctc_logits(net, mel.transpose(1, 2)), cfg.blank_id)
+            if tok is not None:
+                return [tok.decode(s) for s in seqs]
+            return [" ".join(map(str, s)) for s in seqs]
+
+    return _ParakeetCtcEngine()
+
+
+def _gigaam_engine(model_id, path, raw, params, dev) -> EngineProtocol:
+    """GigaAM's conformer CTC over the Parakeet encoder, on the torchaudio
+    MelSpectrogram recipe it trains on; ids map to text through the
+    bundle's label list (blank is the last id)."""
+    from ..dsp.asr_frontend import gigaam_log_mel
+    from ..models import parakeet as pk
+
+    cfg = pk.ParakeetConfig(**raw.get("encoder", {}))
+    labels = raw["labels"]
+    net = pk.params_to_module(params, cfg, dev)
+
+    class _GigaamEngine(EngineProtocol):
+        name = model_id
+        model = net
+
+        def transcribe_batch(self, chunks, language="ru"):
+            feats = gigaam_log_mel(_on_device(chunks, dev), cfg.n_mels).transpose(1, 2)
+            seqs = pk.ctc_greedy(pk.ctc_logits(net, feats), cfg.blank_id)
+            return ["".join(labels[i] for i in s if i < len(labels)).strip() for s in seqs]
+
+    return _GigaamEngine()
+
+
+def _canary_engine(model_id, path, raw, params, dev) -> EngineProtocol:
+    from ..dsp.asr_frontend import nemo_log_mel
+    from ..models import canary as cn
+    from ..models import parakeet as pk
+    from ..models.spm import SentencePieceVocab
+
+    raw = dict(raw)
+    prompt_ids = raw.pop("prompt_ids", None)
+    if "config" in raw:
+        cfg = cn.CONFIGS[raw["config"]]
+    else:
+        cfg = cn.CanaryConfig(encoder=pk.ParakeetConfig(**raw.pop("encoder", {})), **raw)
+    if prompt_ids is None:
+        prompt_ids = [cfg.bos]
+    net = cn.params_to_module(params, cfg, dev)
+    vocab = SentencePieceVocab.load(path / "tokenizer.model")
+    pieces = list(vocab.pieces)
+
+    def _prompt_for_language(language: str):
+        """Swap <|lang|> slots in the canary prompt when the vocab has the
+        requested language token (the ONNX enc-dec engine's contract)."""
+        if language == "en" or f"<|{language}|>" not in pieces:
+            return prompt_ids
+        en, lang = (pieces.index("<|en|>") if "<|en|>" in pieces else -1,
+                    pieces.index(f"<|{language}|>"))
+        if en < 0:
+            return prompt_ids
+        return [lang if t == en else t for t in prompt_ids]
+
+    class _CanaryEngine(EngineProtocol):
+        name = model_id
+        model = net
+        prompt_for_language = staticmethod(_prompt_for_language)
+
+        def transcribe_batch(self, chunks, language="en"):
+            a = _on_device(chunks, dev)
+            feats = nemo_log_mel(a, cfg.encoder.n_mels).transpose(1, 2)
+            prompt = torch.tensor(self.prompt_for_language(language), dtype=torch.long,
+                                  device=dev).expand(a.shape[0], -1)
+            tokens, lengths = cn.greedy_decode(net, feats, prompt=prompt)
+            tokens, lengths = tokens.cpu().numpy(), lengths.cpu().numpy()
+            return [vocab.decode(row[:n]) for row, n in zip(tokens, lengths)]
+
+    return _CanaryEngine()
+
+
+def _sensevoice_engine(model_id, path, raw, params, dev) -> EngineProtocol:
+    from ..dsp.fbank import fbank
+    from ..models import sensevoice as sv
+    from ..models.spm import SentencePieceVocab
+
+    cfg = (sv.CONFIGS[raw["config"]] if "config" in raw
+           else sv.SenseVoiceConfig(**{k: v for k, v in raw.items() if k != "prompt_ids"}))
+    prompt_ids = torch.tensor(raw.get("prompt_ids", [0] * cfg.n_prompt), dtype=torch.long,
+                              device=dev)
+    net = sv.params_to_module(params, cfg, dev)
+    vocab = SentencePieceVocab.load(path / "tokenizer.model")
+
+    class _SenseVoiceEngine(EngineProtocol):
+        name = model_id
+        model = net
+
+        def transcribe_batch(self, chunks, language="en"):
+            logits = sv.ctc_logits(net, fbank(_on_device(chunks, dev), cfg.feat_dim),
+                                   prompt_ids)
+            return [vocab.decode(s) for s in sv.ctc_greedy(logits, cfg)]
+
+    return _SenseVoiceEngine()
 
 
 # ---------------------------------------------------------------------------

@@ -31,9 +31,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-import torch
-
-from ...device import resolve_device
+from ..carry import flat_layout, load_hf_state_dict, load_params
 from .model import Whisper, WhisperConfig, sinusoids
 
 
@@ -179,17 +177,7 @@ def from_hf_state_dict(sd: Dict[str, np.ndarray]) -> Tuple[Dict[str, np.ndarray]
 
 def load_hf(model_dir) -> Tuple[Dict[str, np.ndarray], WhisperConfig]:
     """Load from a HF checkpoint directory (model.safetensors or .bin)."""
-    model_dir = Path(model_dir)
-    st = model_dir / "model.safetensors"
-    if st.exists():
-        from safetensors.numpy import load_file  # not on every machine: only here
-
-        return from_hf_state_dict(load_file(st))
-    pt = model_dir / "pytorch_model.bin"
-    if pt.exists():
-        sd = torch.load(pt, map_location="cpu", weights_only=True)
-        return from_hf_state_dict({k: v.numpy() for k, v in sd.items()})
-    raise FileNotFoundError(f"no checkpoint in {model_dir}")
+    return from_hf_state_dict(load_hf_state_dict(Path(model_dir)))
 
 
 # ---------------------------------------------------------------------------
@@ -447,29 +435,11 @@ def _flat_name(name: str) -> str:
     return ".".join(out + path + ["g" if path[-1].startswith("ln") else "w"])
 
 
-def _is_conv(ours: str) -> bool:
-    return ours.endswith("conv1.w") or ours.endswith("conv2.w")
-
-
 def params_to_module(params: Dict[str, np.ndarray], cfg: WhisperConfig,
                      device=None) -> Whisper:
     """Carry flat params (the JAX package's layout) into a ``Whisper`` on
-    ``device`` (default: the card): linear weights [in, out] → [out, in],
-    conv weights [k, in, out] → [out, in, k]; values unchanged. The module
-    is for inference: its weights take no gradient."""
-    dev = resolve_device(device)
-    with torch.device("meta"):
-        model = Whisper(cfg)
-    state = {}
-    for k, v in params.items():
-        a = np.asarray(v, np.float32)
-        if _is_conv(k):
-            a = a.transpose(2, 1, 0)
-        elif k.endswith(".w"):
-            a = a.T
-        state[_module_name(k)] = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    model.load_state_dict(state, strict=True, assign=True)
-    return model.eval().requires_grad_(False)
+    ``device`` (default: the card), by ``carry.load_params``."""
+    return load_params(lambda: Whisper(cfg), params, device, _module_name)
 
 
 def module_to_params(model: Whisper) -> Dict[str, np.ndarray]:
@@ -477,10 +447,5 @@ def module_to_params(model: Whisper) -> Dict[str, np.ndarray]:
     out = {}
     for name, t in model.state_dict().items():
         k = _flat_name(name)
-        a = t.detach().cpu().numpy()
-        if _is_conv(k):
-            a = a.transpose(2, 1, 0)
-        elif k.endswith(".w"):
-            a = a.T
-        out[k] = np.ascontiguousarray(a)
+        out[k] = np.ascontiguousarray(flat_layout(k, t.detach().cpu().numpy()))
     return out

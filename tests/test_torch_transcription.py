@@ -337,7 +337,9 @@ def install_model(models_dir, ggml_file, model_id="small"):
 
 def test_load_engine_transcribes(tmp_path, data_root, ggml_file):
     """load_engine's whisper engine (the full fallback ladder) on the ggml
-    file under a catalog id; other engine types are not ported yet."""
+    file under a catalog id; a model not downloaded raises, and so does a
+    bundle that needs the ONNX executor (the native families are held in
+    tests/test_torch_asr_engines.py)."""
     mm = ModelManager(models_dir=tmp_path / "Models")
     with pytest.raises(FileNotFoundError):
         tr.load_engine("small", mm, device="cpu")
@@ -353,7 +355,10 @@ def test_load_engine_transcribes(tmp_path, data_root, ggml_file):
     assert ttm.engine.decode_batch_bucket == 16 and ttm.engine.model.device.type == "cpu"
     with pytest.raises(ValueError, match="unknown model"):
         tr.load_engine("nope", mm, device="cpu")
-    with pytest.raises(ValueError, match="not ported yet"):
+    with pytest.raises(FileNotFoundError, match="not downloaded"):
+        tr.load_engine("moonshine-base", mm, device="cpu")
+    (tmp_path / "Models" / ModelManager.find("moonshine-base").filename).mkdir()
+    with pytest.raises(NotImplementedError, match="not ported yet"):
         tr.load_engine("moonshine-base", mm, device="cpu")
 
 
