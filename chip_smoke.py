@@ -92,8 +92,33 @@ Phases, each printed on its own lines; any failure exits non-zero:
      differs card vs CPU passes only at a near-tie (the CPU's top-two margin
      below 1e-4 of the step's largest |logit|); each is printed and counted.
 
-The Whisper and ASR phases run no hand-written kernel (the JAX package's
-models have no Pallas kernel), so they add no row to the kernels line.
+ 11. speaker diarization: (a) ``synth_speaker_hour(60)`` (57.6 M samples,
+     3 tone speakers) through ``diarize(max_speakers=8, merge_gap=1.0)``
+     with the built-in nets on the card (the one-upload route: 366 windows,
+     900 chunks, NME-SC at N=1024, P=64), 3 timed calls (median, spread,
+     ×realtime, peak memory), the stages of one more by CUDA events
+     (upload and quantize, margins, chunk statistics, the NME sweep, the
+     final eigensolve with k-means), held against the port's CPU path on
+     the same hour (equal speaker segments; energy margins within 1e-4 of
+     0 counted), then a 60 s clip on the host-VAD route, equal to the CPU
+     path's; (b) PyanNet segmentation-3.0 and CAM++ wespeaker-voxceleb at
+     their published widths (the JAX layout's ``init_random`` at seed 0
+     through the carry), card against CPU within 1e-4 of their max
+     (logits of 2 windows; embeddings of 16 chunks on the same fbank
+     features, beside the difference from each device's own features),
+     the first 150 s through the ``from_device`` route equal to the CPU
+     path's, then the hour composed as the JAX package's bench composes
+     it (net outputs at weight 0, decisions from the energy margins; a
+     non-finite net output fails), 3 timed calls with the nets' forwards
+     and NME-SC by CUDA events; (c) the phase-8 WAV through
+     ``run_transcription(diarization={"enabled": True})`` and the phase-6
+     Whisper file: completed, no ``diarization-fallback`` event, speaker
+     tags in the text, its speaker segments equal to a separate
+     ``diarize`` of the same 16 kHz audio on the card.
+
+The Whisper, ASR and diarization phases run no hand-written kernel (the
+JAX package's models have no Pallas kernel), so they add no row to the
+kernels line.
 
 Then one JSON line with every kernel's numbers (launches from phases 3, 4
 and 9b), and as the last line
@@ -166,6 +191,13 @@ FEAT_RTOL = 1e-4  # NeMo features card vs CPU, x their max: cuFFT against pocket
 PK_ENC_RTOL = 1e-3  # the 24-layer encoder's output card vs CPU, x its max
 TIE_RTOL = 1e-4  # a divergent decision passes below this top-two margin, x max|logit|
 PROFILE_STEPS = 32  # phase 10c: new tokens in the profiled canary and moonshine loops
+
+DIAR_MINUTES = 60  # phase 11: synth_speaker_hour's hour, 57.6 M samples at 16 kHz
+DIAR_RUNS = 3  # timed diarize calls a cell (median and spread)
+DIAR_CLIP_SECONDS = 60  # phase 11a: the host-VAD route
+STAGED_CHECK_SECONDS = 150  # phase 11b: card vs CPU on the from_device route
+NET_RTOL = 1e-4  # PyanNet logits and CAM++ embeddings card vs CPU, x their max
+MARGIN_TIE = 1e-4  # an energy margin this near 0 may decide speech differently card vs CPU
 
 
 def fail(msg: str) -> None:
@@ -685,8 +717,9 @@ def decode_phase(torch, dev, path: Path, rng, card: str) -> dict:
     return out
 
 
-def e2e_phase(torch, dev, path: Path, tmp: Path, rng, card: str) -> None:
-    """Phase 8: run_transcription through load_engine on a 5 min 48 kHz WAV."""
+def e2e_phase(torch, dev, path: Path, tmp: Path, rng, card: str):
+    """Phase 8: run_transcription through load_engine on a 5 min 48 kHz WAV;
+    returns the WAV and its model manager (phase 11c reads them)."""
     from crispy_tpu_torch.api.events import EventBus
     from crispy_tpu_torch.dsp.resample import resample_poly
     from crispy_tpu_torch.engine import transcription as tr
@@ -754,6 +787,7 @@ def e2e_phase(torch, dev, path: Path, tmp: Path, rng, card: str) -> None:
         fail(f"progress did not reach 1.0: {progress}")
     if not seen or any(kind != "Tensor" or not d.startswith("cuda") for kind, d, _ in seen):
         fail(f"a chunk batch was not a tensor on the card: {seen}")
+    return wav, StubManager()
 
 
 def monitoring_shape_lines(torch, pipeline, rk, ok, fk, params, dev, rng) -> None:
@@ -1620,6 +1654,315 @@ def family_cells(torch, mm, rng, card: str, ties: list) -> None:
           f"sensevoice {asdict(scfg)}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: speaker diarization
+# ---------------------------------------------------------------------------
+
+class CudaStages:
+    """Device time of named stages by CUDA events: ``wrap`` makes each call
+    of a module function record an event pair under a name, ``time`` does
+    so for a block; ``ms()`` sums them by name. Every wrapped function is
+    restored on exit."""
+
+    def __init__(self, torch):
+        self.torch, self.pairs, self.saved = torch, {}, []
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for module, attr, fn in reversed(self.saved):
+            setattr(module, attr, fn)
+
+    @contextlib.contextmanager
+    def time(self, name: str):
+        ev = [self.torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        yield
+        ev[1].record()
+        self.pairs.setdefault(name, []).append(ev)
+
+    def wrap(self, module, attr: str, name: str) -> None:
+        fn = getattr(module, attr)
+
+        def timed(*args, **kwargs):
+            with self.time(name):
+                return fn(*args, **kwargs)
+
+        self.saved.append((module, attr, fn))
+        setattr(module, attr, timed)
+
+    def ms(self) -> dict:
+        self.torch.cuda.synchronize()
+        return {name: round(sum(a.elapsed_time(b) for a, b in evs), 3)
+                for name, evs in self.pairs.items()}
+
+
+def speaker_segments(result) -> list:
+    return [(s.start, s.end, s.speaker) for s in result]
+
+
+def timed_runs(torch, fn, runs: int):
+    """fn() runs times on the card, each ended by a synchronise: walls in
+    seconds (host clock), the last result, and the peak device memory of
+    the runs in GB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, out = [], None
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return walls, out, torch.cuda.max_memory_allocated() / 1e9
+
+
+def walls_line(walls, seconds: float) -> str:
+    med = float(np.median(walls))
+    spread = (max(walls) - min(walls)) / med
+    return (f"wall {', '.join(f'{w:.3f}' for w in walls)} s (median {med:.3f} s, spread "
+            f"{100 * spread:.1f}%), {seconds / med:.1f}x realtime")
+
+
+def builtin_hour(torch, td, tn, dd, dev, audio, card: str):
+    """Phase 11a: the built-in stand-in nets on the hour through ``diarize``
+    on the card (the one-upload route), held against the port's CPU path;
+    then a 60 s clip (the host-VAD route)."""
+    sr = td.SAMPLE_RATE
+    seconds = audio.shape[0] / sr
+    td.diarize(audio[: 3 * 60 * sr], max_speakers=8, merge_gap=1.0)  # cuFFT plans, cuSOLVER
+    walls, out, peak = timed_runs(
+        torch, lambda: td.diarize(audio, max_speakers=8, merge_gap=1.0), DIAR_RUNS)
+    with CudaStages(torch) as st, recorded(td, "_diarize_fused_frontend") as front:
+        st.wrap(td, "_upload_i16", "upload and quantize")
+        st.wrap(dd, "segmentation_margins", "margins")
+        st.wrap(dd, "chunk_stats", "chunk stats")
+        st.wrap(tn, "_graph", "NME affinity and sweep")
+        st.wrap(tn, "_sweep", "NME affinity and sweep")
+        st.wrap(tn, "_final", "final eigensolve and k-means")
+        staged = td.diarize(audio, max_speakers=8, merge_gap=1.0)
+        stages = st.ms()
+    segments, chunks, emb = front[0]
+    n = len(chunks)
+    N = tn._bucket(n)
+    print(f"[11a] diarize of {seconds:.0f} s (synth_speaker_hour, 3 tone speakers) on the card, "
+          f"built-in nets, one-upload route: {walls_line(walls, seconds)}; peak device memory "
+          f"{peak:.3f} GB [{card}]")
+    print(f"[11a] {dd.pad_length(audio.shape[0]) // dd.WINDOW_SAMPLES} windows, "
+          f"{len(segments)} speech segments, {n} chunks, embeddings {emb.shape}; NME-SC at "
+          f"n={n}: bucket N={N}, P={tn._p_cap(N)}, subspace sweep "
+          f"{tn._use_subspace(N, min(8, n - 1))}; {len(staged)} speaker segments, "
+          f"{len({s.speaker for s in staged})} speakers")
+    print(f"[11a] stages of one more call by CUDA events (ms): {stages} [{card}]")
+    if speaker_segments(staged) != speaker_segments(out):
+        fail("two diarize calls on the card disagree")
+    prof = profile_call(torch, lambda: tn.nme_sc_device(emb, 8))
+    print(f"[11a] NME-SC of the {n} embeddings under torch.profiler: {prof['launches']} "
+          f"launches, {prof['device_ms']:.3f} ms of device time in {prof['wall_ms']:.3f} ms "
+          f"(busy {100 * prof['busy_share']:.1f}%); top kernels (name, ms, count) "
+          f"{prof['top']} [{card}]")
+
+    # the port's CPU path on the same hour
+    t0 = time.perf_counter()
+    cpu = td.diarize(audio, max_speakers=8, merge_gap=1.0, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    q, pad_to = td._upload_i16(audio, dev)
+    m_card = dd.segmentation_margins(q, pad_to)
+    m_cpu = dd.segmentation_margins(q.cpu(), pad_to)
+    near = np.abs(m_cpu) < MARGIN_TIE
+    flips = (m_card >= 0) != (m_cpu >= 0)
+    print(f"[11a] vs the port's CPU path ({t_cpu:.1f} s there): margins max|diff| "
+          f"{float(np.abs(m_card - m_cpu).max()):.3e}; {int(near.sum())} of {near.size} frames "
+          f"within {MARGIN_TIE} of 0, {int(flips.sum())} speech decisions differ "
+          f"({int((flips & ~near).sum())} off a near-zero margin)")
+    if (flips & ~near).any():
+        fail("a speech decision differs card vs CPU off a near-zero margin")
+    if not flips.any() and speaker_segments(out) != speaker_segments(cpu):
+        fail("the hour's speaker segments differ card vs CPU")
+    print(f"[11a] speaker segments card vs CPU: {'equal' if not flips.any() else 'not held'} "
+          f"({len(cpu)} on the CPU path)")
+
+    clip = audio[: DIAR_CLIP_SECONDS * sr]
+    with recorded(td, "_diarize_fused_frontend") as front:
+        walls_c, got, _ = timed_runs(torch, lambda: td.diarize(clip, max_speakers=8), DIAR_RUNS)
+    want = td.diarize(clip, max_speakers=8, device="cpu")
+    print(f"[11a] {DIAR_CLIP_SECONDS} s clip, host-VAD route (one-upload route taken "
+          f"{len(front)} times): {walls_line(walls_c, DIAR_CLIP_SECONDS)}; {len(got)} speaker "
+          f"segments, equal to the CPU path's: {speaker_segments(got) == speaker_segments(want)}")
+    if front or speaker_segments(got) != speaker_segments(want) or not got:
+        fail("the 60 s clip's speaker segments differ card vs CPU")
+    return chunks
+
+
+class StagedSegmentation:
+    """PyanNet composed as the JAX package's bench composes it: the net's
+    logits enter at weight 0 (every FLOP runs and stays in the data flow),
+    the decisions come from the energy-VAD margins."""
+
+    def __init__(self, net, dd, st):
+        self.net, self.dd, self.st = net, dd, st
+
+    def from_device(self, q):
+        with self.st.time("segmentation forward"):
+            real = self.net.from_device(q)
+        if not np.isfinite(real).all():
+            fail("non-finite segmentation logits")
+        m = self.dd.segmentation_margins(q, int(q.shape[0]))
+        ev = np.stack([-m, m], axis=-1)
+        f = min(real.shape[1], ev.shape[1])
+        return ev[:, :f] + 0.0 * real[:, :f, :2]
+
+
+class StagedEmbedding:
+    """CAM++ composed the same way: its embeddings at weight 0 beside the
+    stand-in's chunk statistics, tiled to the embedding width."""
+
+    def __init__(self, net, dd, st):
+        self.net, self.dd, self.st = net, dd, st
+
+    def from_device(self, q, ranges):
+        with self.st.time("CAM++ forward"):
+            real = self.net.from_device(q, ranges)
+        if not np.isfinite(real).all():
+            fail("non-finite CAM++ embeddings")
+        stand = self.dd.chunk_stats(q, int(q.shape[0]), list(ranges))
+        reps = -(-real.shape[1] // stand.shape[1])
+        return np.tile(stand, (1, reps))[:, : real.shape[1]] + 0.0 * real
+
+
+def staged_hour(torch, td, dd, dev, audio, chunks, card: str) -> None:
+    """Phase 11b: PyanNet segmentation-3.0 and CAM++ wespeaker-voxceleb at
+    their published widths (the JAX layout's init_random at seed 0 through
+    the carry), card against CPU, then the hour through the from_device
+    route."""
+    from crispy_tpu_torch.dsp.fbank import fbank
+    from crispy_tpu_torch.models import campplus as tc
+    from crispy_tpu_torch.models import segmentation as ts
+
+    sr = td.SAMPLE_RATE
+    seconds = audio.shape[0] / sr
+    t0 = time.perf_counter()
+    seg_p, cam_cfg = ts.init_random(seed=0), tc.CONFIGS["wespeaker-voxceleb"]
+    cam_p = tc.init_random(cam_cfg, seed=0)
+    seg, seg_cpu = ts.params_to_module(seg_p), ts.params_to_module(seg_p, device="cpu")
+    cam, cam_cpu = tc.params_to_module(cam_p, cam_cfg), tc.params_to_module(cam_p, cam_cfg, "cpu")
+    n_seg = sum(p.numel() for p in seg.parameters())
+    n_cam = sum(p.numel() for p in cam.parameters())
+    windows = audio[: 2 * ts.WINDOW_SAMPLES].reshape(2, -1)
+    lc, lh = seg(windows), seg_cpu(windows)
+    # CAM++ on the same fbank features on both devices (the CPU's): the
+    # log-mel of pure tones is f32 rounding noise in the bins far from the
+    # tone, so features made on each device differ there by up to ~0.6,
+    # which moves the embeddings by ~3e-4 of their max; that difference
+    # is printed, the net is held on identical inputs
+    rows, n_valid = tc.chunk_rows([c.samples for c in chunks[:16]])
+    feats = fbank(torch.from_numpy(rows), cam_cfg.feat_dim)[:, : tc._MAX_FRAMES]
+    nv = torch.from_numpy(n_valid)
+    ec = cam.forward(feats.to(dev), nv.to(dev)).cpu().numpy()
+    eh = cam_cpu.forward(feats, nv).numpy()
+    feats_card = fbank(torch.from_numpy(rows).to(dev), cam_cfg.feat_dim)[:, : tc._MAX_FRAMES]
+    f_diff = (feats_card.cpu() - feats).abs()
+    ea = cam.forward(feats_card, nv.to(dev)).cpu().numpy()
+    l_err = float(np.abs(lc - lh).max() / np.abs(lh).max())
+    e_err = float(np.abs(ec - eh).max() / np.abs(eh).max())
+    a_err = float(np.abs(ea - eh).max() / np.abs(eh).max())
+    print(f"[11b] PyanNet {n_seg / 1e6:.3f} M and CAM++ {n_cam / 1e6:.3f} M random weights "
+          f"(seed 0) on the card and the CPU ({time.perf_counter() - t0:.1f} s): logits of 2 "
+          f"windows {lc.shape} max|diff| {l_err:.3e} of their max, embeddings of 16 chunks "
+          f"{ec.shape} from the same features {e_err:.3e} of their max (tol {NET_RTOL}); from "
+          f"each device's own fbank {a_err:.3e} (features max|diff| "
+          f"{float(f_diff.max()):.3e}, {float((f_diff > 1e-2).double().mean()):.4f} of them "
+          f"beyond 1e-2)")
+    if not (l_err <= NET_RTOL and e_err <= NET_RTOL):
+        fail("a diarization net differs card vs CPU")
+
+    with CudaStages(torch) as st:
+        nets = dict(segmentation_fn=StagedSegmentation(seg, dd, st),
+                    embedding_fn=StagedEmbedding(cam, dd, st))
+        head = audio[: STAGED_CHECK_SECONDS * sr]
+        got = td.diarize(head, max_speakers=8, merge_gap=1.0, **nets)
+        want = td.diarize(head, max_speakers=8, merge_gap=1.0, device="cpu",
+                          segmentation_fn=StagedSegmentation(seg_cpu, dd, st),
+                          embedding_fn=StagedEmbedding(cam_cpu, dd, st))
+        print(f"[11b] first {STAGED_CHECK_SECONDS} s through the from_device route: "
+              f"{len(got)} speaker segments, equal to the CPU path's: "
+              f"{speaker_segments(got) == speaker_segments(want)}")
+        if not got or speaker_segments(got) != speaker_segments(want):
+            fail("the staged nets' speaker segments differ card vs CPU")
+        st.ms()
+        st.pairs.clear()
+        st.wrap(td, "nme_sc", "NME-SC")
+        walls, out, peak = timed_runs(
+            torch, lambda: td.diarize(audio, max_speakers=8, merge_gap=1.0, **nets), DIAR_RUNS)
+        stages = {k: round(v / DIAR_RUNS, 3) for k, v in st.ms().items()}
+    print(f"[11b] diarize of {seconds:.0f} s on the card with the staged nets: "
+          f"{walls_line(walls, seconds)}; peak device memory {peak:.3f} GB; {len(out)} speaker "
+          f"segments [{card}]")
+    print(f"[11b] stages by CUDA events, ms a call (mean of {DIAR_RUNS}): {stages} [{card}]")
+
+
+def diarized_transcription(torch, td, wav: Path, manager, card: str) -> None:
+    """Phase 11c: the phase-8 WAV through run_transcription with diarization
+    and the phase-6 whisper file, against a separate diarize of the same
+    16 kHz audio on the card."""
+    import re
+
+    from crispy_tpu_torch.api.events import EventBus
+    from crispy_tpu_torch.dsp.resample import resample_poly
+    from crispy_tpu_torch.engine import transcription as tr
+    from crispy_tpu_torch.io import wav as wavio
+
+    bus = EventBus()
+    bus.keep_history = True
+    tm = tr.TranscriptionManager(manager, bus=bus)
+    with recorded(td, "diarize") as calls:
+        t0 = time.perf_counter()
+        text = tr.run_transcription(str(wav), tm, manager.info.id, diarization={"enabled": True})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    st = tm.get_state(str(wav))
+    falls = [p for e, p in bus.history if e == "diarization-fallback"]
+    phases = [p["phase"] for e, p in bus.history if e == "transcription-phase"]
+    tags = re.findall(r"\[(Speaker \d+)\|", text or "")
+    audio, sr = wavio.read_wav_mono(wav)
+    sep = td.diarize(resample_poly(audio, sr, 16000, wire="i16", device_out=True))
+    print(f"[11c] run_transcription with diarization of the {E2E_SECONDS} s phase-8 WAV: status "
+          f"{st.status if st else None}, wall {wall:.3f} s (model load included), phases "
+          f"{phases}, {len(tags)} speaker tags ({sorted(set(tags))}), {len(text or '')} "
+          f"characters, fallback events {falls}; its speaker segments {len(calls[0]) if calls else None}, "
+          f"equal to a separate diarize on the card: "
+          f"{bool(calls) and speaker_segments(calls[0]) == speaker_segments(sep)} [{card}]")
+    if st is None or st.status != "completed" or falls:
+        fail(f"run_transcription with diarization ended in {st} with fallbacks {falls}")
+    if not tags:
+        fail("the diarized transcript carries no speaker tags")
+    if len(calls) != 1 or speaker_segments(calls[0]) != speaker_segments(sep):
+        fail("the transcript's speaker segments differ from a separate diarize")
+
+
+def diarization_phase(torch, dev, card: str, wav: Path, manager) -> None:
+    from crispy_tpu_torch.engine import diar_device as dd
+    from crispy_tpu_torch.engine import diarization as td
+    from crispy_tpu_torch.engine import nme_device as tn
+    from crispy_tpu_torch.utils.synth import synth_speaker_hour
+
+    t0 = time.perf_counter()
+    audio = synth_speaker_hour(DIAR_MINUTES)
+    print(f"[11] synth_speaker_hour({DIAR_MINUTES}): {audio.shape[0]} samples "
+          f"({time.perf_counter() - t0:.1f} s on the host)")
+    with torch.no_grad():
+        t1 = time.perf_counter()
+        chunks = builtin_hour(torch, td, tn, dd, dev, audio, card)
+        t2 = time.perf_counter()
+        staged_hour(torch, td, dd, dev, audio, chunks, card)
+        t3 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as data:
+        os.environ["CRISPY_DATA_DIR"] = data  # sidecars stay out of HOME
+        diarized_transcription(torch, td, wav, manager, card)
+    print(f"[11] 11a, 11b, 11c took {t2 - t1:.1f}, {t3 - t2:.1f}, "
+          f"{time.perf_counter() - t3:.1f} s")
+
+
 def main() -> int:
     # The run uses one card: show torch only the first visible one, so the
     # count it reports is the count it used.
@@ -1807,17 +2150,18 @@ def main() -> int:
 
     # --- 6 to 8: Whisper transcription ---------------------------------------
     wrng = np.random.default_rng(SEED + 2)
-    with tempfile.TemporaryDirectory() as tmp:
-        with tempfile.TemporaryDirectory() as data:
-            os.environ["CRISPY_DATA_DIR"] = data  # sidecars stay out of HOME
-            t0 = time.perf_counter()
-            ggml = whisper_phase(torch, dev, Path(tmp), wrng)
-            t1 = time.perf_counter()
-            decode_phase(torch, dev, ggml, wrng, card)
-            t2 = time.perf_counter()
-            e2e_phase(torch, dev, ggml, Path(tmp), wrng, card)
-            print(f"[8] phases 6, 7, 8 took {t1 - t0:.1f}, {t2 - t1:.1f}, "
-                  f"{time.perf_counter() - t2:.1f} s")
+    whisper_files = contextlib.ExitStack()  # the ggml file and the phase-8 WAV, for phase 11c
+    tmp = whisper_files.enter_context(tempfile.TemporaryDirectory())
+    with tempfile.TemporaryDirectory() as data:
+        os.environ["CRISPY_DATA_DIR"] = data  # sidecars stay out of HOME
+        t0 = time.perf_counter()
+        ggml = whisper_phase(torch, dev, Path(tmp), wrng)
+        t1 = time.perf_counter()
+        decode_phase(torch, dev, ggml, wrng, card)
+        t2 = time.perf_counter()
+        e2e_wav, e2e_manager = e2e_phase(torch, dev, ggml, Path(tmp), wrng, card)
+        print(f"[8] phases 6, 7, 8 took {t1 - t0:.1f}, {t2 - t1:.1f}, "
+              f"{time.perf_counter() - t2:.1f} s")
 
     # --- 9: live monitoring and recording ---------------------------------
     mrng = np.random.default_rng(SEED + 4)
@@ -1850,6 +2194,12 @@ def main() -> int:
             family_cells(torch, mm, arng, card, ties)
     print(f"[10] decisions that differ card vs CPU at a near-tie: {len(ties)} {ties}; "
           f"phase 10 took {time.perf_counter() - t0:.1f} s")
+
+    # --- 11: speaker diarization ---------------------------------------------
+    t0 = time.perf_counter()
+    with whisper_files:
+        diarization_phase(torch, dev, card, e2e_wav, e2e_manager)
+    print(f"[11] phase 11 took {time.perf_counter() - t0:.1f} s")
 
     for r in rows:
         r["launches"] = launches[r["name"]]

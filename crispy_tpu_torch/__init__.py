@@ -12,16 +12,19 @@ at first use by ``_build.py``). It imports neither ``jax`` nor anything of
            CUDA graph, the Whisper log-mel, the resamplers (streaming on the
            host, polyphase on the host or the device)
   engine/  the streaming NS processors and live monitoring, the recording
-           mixer and its CRUD, file and array denoising, file transcription
+           mixer and its CRUD, file and array denoising, file transcription,
+           speaker diarization (the one-upload frontend, NME-SC on the
+           device)
   io/      the WAV codec and the incremental stereo writer
-  models/  Whisper (encoder, decoder, decoding, weights, tokenizer) and the
-           model catalog
+  models/  Whisper, the native ASR families, the diarization nets (PyanNet,
+           CAM++), the carry of the JAX package's weights, the ONNX weight
+           reader and the model catalog
   runtime  the C++ host tier (rings, mixer step, resampler, WAV writer, RMS)
            bound with ctypes, built with g++ at first use
-  utils/   the user-data layout and stage timers
+  utils/   the user-data layout, stage timers, synthetic speaker audio
   cli      ``python -m crispy_tpu_torch.cli denoise IN OUT``, ``bench``,
            ``resample IN OUT --rate R``, ``recordings list|rename|delete``
-           and ``transcribe IN --model ID``
+           and ``transcribe IN --model ID [--diarize]``
 """
 
 __version__ = "0.1.0"

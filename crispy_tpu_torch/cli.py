@@ -8,13 +8,18 @@
   python -m crispy_tpu_torch.cli recordings list|rename|delete [PATH] [NAME]
                                                           recordings CRUD (host)
   python -m crispy_tpu_torch.cli transcribe IN.wav --model ID [--language L]
-                                  [--output F]           speech-to-text
+                                  [--output F] [--diarize]
+                                                          speech-to-text, with
+                                                          speaker tags on --diarize
 
 ``CRISPY_FUSED_SPECTRA=on`` runs denoise and bench through the
 fused-spectra kernels (K4-K6) in place of the FFTs. ``transcribe`` loads
 the model from ``<data root>/Models`` (``CRISPY_DATA_DIR``, else
 ``~/Documents/Crispy``) under its catalog file name; ``recordings`` works on
-``<data root>/Recordings``.
+``<data root>/Recordings``. ``--diarize`` diarizes the recording on the
+card and tags the text (``[Speaker N|start]``); downloaded diarization nets
+(``diarize-segmentation``, ``diarize-embedding``) load from the same
+directory, else the built-in stand-in nets run.
 
 denoise, bench, resample and transcribe run on the CUDA card by default and
 fail without one; ``--device cpu`` runs the plain PyTorch path instead.
@@ -182,7 +187,8 @@ def _cmd_transcribe(args) -> int:
     t0 = time.perf_counter()
     rec = str(args.input)
     try:
-        text = tr.run_transcription(rec, tm, args.model, language=args.language)
+        text = tr.run_transcription(rec, tm, args.model, language=args.language,
+                                    diarization={"enabled": True} if args.diarize else None)
     except (ValueError, FileNotFoundError, NotImplementedError) as e:
         print(json.dumps({"error": str(e)}))
         return 1
@@ -235,6 +241,8 @@ def main(argv=None) -> int:
     t.add_argument("--model", required=True, help="catalog model id")
     t.add_argument("--language", default="en", help="spoken language code (e.g. de, ru)")
     t.add_argument("--output", type=Path, default=None, help="default: print the text")
+    t.add_argument("--diarize", action="store_true",
+                   help="tag the text with speakers ([Speaker N|start])")
     t.add_argument("--device", default=None, help="default: cuda")
     t.set_defaults(fn=_cmd_transcribe)
 

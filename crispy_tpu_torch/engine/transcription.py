@@ -15,7 +15,9 @@ not at 16 kHz is resampled there (``resample_poly(device_out=True)``) and
 its chunk batches never leave it. The engines: whisper, and the native
 families (parakeet TDT and CTC, gigaam, canary, moonshine, sensevoice) from
 prepared bundles; the catalog's ONNX bundles and cohere wait for the ONNX
-executor (ROADMAP queue 1, item 10), diarization for item 9.
+executor (ROADMAP queue 1, item 10). With diarization on, the chunks are
+decoded with timestamps and the speaker segments of ``engine/diarization``
+tag the text.
 """
 
 from __future__ import annotations
@@ -158,6 +160,38 @@ class EngineProtocol:
     def transcribe_batch(self, chunks_16k, language: str = "en") -> List[str]:
         raise NotImplementedError
 
+    def transcribe_with_timestamps(
+        self, chunk_16k, offset_seconds: float, language: str = "en"
+    ) -> List[Tuple[float, float, str]]:
+        """Word segments (start, end, text); default: the whole chunk as one
+        segment (managers/transcription.rs:196-249's fallback path)."""
+        text = self.transcribe_batch(chunk_16k[None, :], language=language)[0]
+        dur = chunk_16k.shape[-1] / TARGET_SAMPLE_RATE
+        return [(offset_seconds, offset_seconds + dur, text)] if text.strip() else []
+
+    def transcribe_batch_with_timestamps(
+        self, chunks_16k, offsets_seconds: List[float], language: str = "en"
+    ) -> List[List[Tuple[float, float, str]]]:
+        """Timestamped segments for a batch of chunks. The default makes one
+        ``transcribe_batch`` call and returns whole-chunk segments (the
+        reference's fallback granularity), so a job with diarization keeps
+        the batch. An engine that overrides only the single-chunk method
+        keeps its word granularity: it is called chunk by chunk."""
+        if (type(self).transcribe_with_timestamps
+                is not EngineProtocol.transcribe_with_timestamps):
+            import inspect
+
+            takes_lang = "language" in inspect.signature(
+                type(self).transcribe_with_timestamps).parameters
+            return [self.transcribe_with_timestamps(
+                        chunks_16k[j], offsets_seconds[j],
+                        **({"language": language} if takes_lang else {}))
+                    for j in range(len(chunks_16k))]
+        texts = self.transcribe_batch(chunks_16k, language=language)
+        dur = chunks_16k.shape[-1] / TARGET_SAMPLE_RATE
+        return [[(off, off + dur, t)] if t.strip() else []
+                for t, off in zip(texts, offsets_seconds)]
+
 
 def _on_device(chunks, device: torch.device) -> torch.Tensor:
     """[B, T] chunks (an array, a list of equal-length arrays, or a tensor)
@@ -232,6 +266,13 @@ def _whisper_engine(model_id: str, path: Path, dev: torch.device) -> EngineProto
             # whisper.cpp applies temperature fallback + the no-speech
             # gate internally (transcription.rs delegates); match it.
             return wm.transcribe_chunks_robust(chunks, language=language)
+
+        def transcribe_with_timestamps(self, chunk_16k, offset_seconds, language="en"):
+            return wm.transcribe_chunk_with_timestamps(chunk_16k, offset_seconds,
+                                                       language=language)
+
+        def transcribe_batch_with_timestamps(self, chunks, offsets, language="en"):
+            return wm.transcribe_chunks_with_timestamps(chunks, offsets, language=language)
 
     return _WhisperEngine()
 
@@ -487,10 +528,12 @@ def run_transcription(
     batch_chunks: int = 8,
 ) -> Optional[str]:
     """Blocking transcription of one recording. Returns the final text
-    (None on cancel); raises on errors. Emits the reference's event stream."""
-    if diarization and diarization.get("enabled"):
-        raise NotImplementedError(
-            "diarization is not ported yet (ROADMAP queue 1, item 9)")
+    (None on cancel); raises on errors. Emits the reference's event stream.
+    ``diarization={"enabled": True, "max_speakers": 4, "merge_gap": 1.0}``
+    tags the text with speakers (diarized on the manager's device); if
+    diarization fails, the plain transcript is kept and a
+    ``diarization-fallback`` event carries the error."""
+    diarize = bool(diarization and diarization.get("enabled"))
     bus = tm.bus
     cancel = tm.create_cancel_flag(recording_path)
 
@@ -549,7 +592,7 @@ def run_transcription(
         if (ckpt and ckpt.get("model_id") == model_id
                 and ckpt.get("language") == language
                 and ckpt.get("n_chunks") == n_chunks
-                and not ckpt.get("diarization")):
+                and bool(ckpt.get("diarization")) == diarize):
             parts = [(float(s), float(e), t) for s, e, t in ckpt.get("parts", [])]
             resume_chunk = min(int(ckpt.get("done_chunks", 0)), n_chunks)
         start_t = time.monotonic()
@@ -578,17 +621,32 @@ def run_transcription(
                 else:
                     batch = np.concatenate(
                         [batch, np.zeros((bsz - n_live, CHUNK_SAMPLES), np.float32)])
-            with stage("transcribe-batch", bus, {"chunks": n_live}):
-                texts = tm.engine.transcribe_batch(batch, language=language)[:n_live]
-            for j, text in enumerate(texts):
-                cs = (b0 + j) * TRANSCRIBE_CHUNK_SECONDS
-                if text.strip():
-                    parts.append((cs, min(cs + TRANSCRIBE_CHUNK_SECONDS, total_seconds), text))
-            done_chunks = b0 + len(texts)
+            if diarize:
+                # timestamped segments for speaker alignment (:272-280),
+                # the whole batch in one call
+                offsets = [(b0 + j) * TRANSCRIBE_CHUNK_SECONDS for j in range(bsz)]
+                with stage("transcribe-batch-timestamps", bus, {"chunks": n_live}):
+                    seg_lists = tm.engine.transcribe_batch_with_timestamps(
+                        batch, offsets, language=language)[:n_live]
+                n_done = len(seg_lists)
+                for segs in seg_lists:
+                    for s, e, text in segs:
+                        if text.strip():
+                            parts.append((s, min(e, total_seconds), text))
+            else:
+                with stage("transcribe-batch", bus, {"chunks": n_live}):
+                    texts = tm.engine.transcribe_batch(batch, language=language)[:n_live]
+                n_done = len(texts)
+                for j, text in enumerate(texts):
+                    cs = (b0 + j) * TRANSCRIBE_CHUNK_SECONDS
+                    if text.strip():
+                        parts.append((cs, min(cs + TRANSCRIBE_CHUNK_SECONDS, total_seconds),
+                                      text))
+            done_chunks = b0 + n_done
             _save_progress(recording_path, {
                 "model_id": model_id, "language": language,
                 "n_chunks": n_chunks, "done_chunks": done_chunks,
-                "diarization": False,
+                "diarization": diarize,
                 "parts": [[s, e, t] for s, e, t in parts],
             })
             done_samples = min(done_chunks * CHUNK_SAMPLES, total_out)
@@ -610,6 +668,23 @@ def run_transcription(
             b0 += n_live
 
         text = " ".join(t for _, _, t in parts).strip()
+
+        if diarize:
+            set_phase("diarizing")
+            from . import diarization as dz
+
+            try:
+                text = dz.run_diarization(
+                    audio, TARGET_SAMPLE_RATE, parts, model_manager=tm.model_manager,
+                    max_speakers=int(diarization.get("max_speakers", 4)),
+                    merge_gap=float(diarization.get("merge_gap", 1.0)),
+                    bus=bus, device=tm.device)
+            except Exception as dz_err:
+                # the product keeps the plain transcript when diarization
+                # fails (commands/transcription.rs:456-465), and says so
+                bus.emit("diarization-fallback",
+                         {"recording_path": recording_path, "net": "pipeline",
+                          "error": str(dz_err)})
         save_transcription_result(recording_path, text)
         save_transcription_metadata(recording_path, model_id)
         clear_transcription_progress(recording_path)  # checkpoint consumed

@@ -1,10 +1,9 @@
 """WAV codec: RIFF chunk-walking reader and s16/f32 writer.
 
-The PyTorch port's own copy of the parts of ``crispy_tpu/io/wav.py`` that
-file denoising, transcription and recording use (``read_format``,
-``get_wav_duration``, ``read_wav``, ``read_wav_mono``, ``write_wav`` and the
-incremental stereo writer ``WavWriter``); the port imports nothing of the
-JAX package. The reader walks RIFF chunks tolerant of LIST/INFO chunks and
+The PyTorch port's own copy of ``crispy_tpu/io/wav.py`` (``read_format``,
+``get_wav_duration``, ``read_wav``, ``read_wav_mono``, the streaming reader
+``iter_wav_blocks``, ``write_wav`` and the incremental stereo writer
+``WavWriter``); the port imports nothing of the JAX package. The reader walks RIFF chunks tolerant of LIST/INFO chunks and
 truncated files (src-tauri/src/commands/recording.rs:384-460); the writers
 clamp and scale by 32767 like the reference's recording writer
 (src-tauri/src/recording.rs:108-112). All host-side NumPy.
@@ -16,7 +15,7 @@ import io
 import struct
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Optional, Tuple, Union
+from typing import Iterator, Optional, Tuple, Union
 
 import numpy as np
 
@@ -135,6 +134,30 @@ def read_wav_mono(path: PathLike, channel: int = 0) -> Tuple[np.ndarray, int]:
     commands/transcription.rs:308-312)."""
     data, rate = read_wav(path)
     return np.ascontiguousarray(data[:, min(channel, data.shape[1] - 1)]), rate
+
+
+def iter_wav_blocks(
+    path: PathLike, block_frames: int = 65536
+) -> Iterator[Tuple[np.ndarray, int]]:
+    """Stream (float32 (frames, channels), sample_rate) blocks without loading
+    the whole file — the streaming-read analog of commands/transcription.rs:304-345."""
+    fmt = read_format(path)
+    if fmt is None:
+        raise ValueError(f"Not a valid WAV file: {path}")
+    bytes_per_frame = (fmt.bits_per_sample // 8) * fmt.num_channels
+    remaining = fmt.data_size
+    with open(path, "rb") as f:
+        f.seek(fmt.data_offset)
+        while remaining > 0:
+            n = min(block_frames * bytes_per_frame, remaining)
+            n -= n % bytes_per_frame
+            if n == 0:
+                break
+            raw = f.read(n)
+            if not raw:
+                break
+            remaining -= len(raw)
+            yield _decode(raw, fmt), fmt.sample_rate
 
 
 def write_wav(

@@ -1,9 +1,10 @@
 """The carry of the JAX package's flat parameter dicts into the port's modules.
 
-The JAX package keeps each ASR family's weights as one flat dict of numpy
-arrays (what a prepared bundle's ``params.npz`` holds): names such as
-``enc.3.attn.q.w``, matmul-ready ``[in, out]`` matrices, ``HIO`` and
-``HWIO`` convolution kernels. The port's modules name the same tensors
+The JAX package keeps each ASR family's and each diarization net's weights
+as one flat dict of numpy arrays (what a prepared bundle's ``params.npz``
+holds): names such as ``enc.3.attn.q.w``, matmul-ready ``[in, out]``
+matrices (LSTM gate kernels too), ``HIO`` and ``HWIO`` convolution kernels,
+norms folded to a gain and a bias. The port's modules name the same tensors
 ``enc.layers.3.attn.q.weight`` in torch's layouts. ``load_params`` builds a
 module on the meta device and assigns the carried tensors to it, so the
 module and the JAX package compute the same thing from the same dict.
@@ -23,12 +24,20 @@ from ..device import resolve_device
 
 _INDEX = re.compile(r"\.(\d+)(?=\.|$)")
 _LEAVES = {"w": "weight", "g": "weight", "b": "bias"}
+_LSTM = re.compile(r"^(.*)\.(\d+)\.([fb])\.(ih|hh)\.([wb])$")
 
 
 def module_name(flat: str) -> str:
     """enc.3.attn.q.w → enc.layers.3.attn.q.weight: every layer index sits
-    under a ``layers`` list; the leaves w and g (LayerNorm gain) become
-    weight, b becomes bias; any other name is kept."""
+    under a ``layers`` list; the leaves w and g (a norm's gain) become
+    weight, b becomes bias; any other name is kept. A layer of a
+    bidirectional LSTM, lstm.2.b.ih.w (layer 2, backward direction, [D, 4H]
+    input kernel), becomes nn.LSTM's lstm.weight_ih_l2_reverse."""
+    m = _LSTM.match(flat)
+    if m:
+        path, layer, direction, kind, leaf = m.groups()
+        suffix = "_reverse" if direction == "b" else ""
+        return f"{path}.{_LEAVES[leaf]}_{kind}_l{layer}{suffix}"
     name = _INDEX.sub(r".layers.\1", flat)
     path, _, leaf = name.rpartition(".")
     if path and leaf in _LEAVES:
@@ -93,6 +102,7 @@ def load_params(make: Callable[[], nn.Module], params: Dict[str, np.ndarray],
     state = {}
     for k, v in params.items():
         a = torch_layout(k, np.asarray(v, np.float32))
-        state[rename(k)] = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        # a copy only where the array is strided or read-only (an ONNX file's buffers)
+        state[rename(k)] = torch.from_numpy(np.require(a, requirements="CW")).to(dev)
     model.load_state_dict(state, strict=True, assign=True)
     return model.eval().requires_grad_(False)

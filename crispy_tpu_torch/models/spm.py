@@ -1,7 +1,7 @@
 """SentencePiece vocabulary loader (no sentencepiece dependency).
 
-The port's copy of ``crispy_tpu/models/spm.py``, with its own copy of the
-protobuf field reader (``_fields``, from ``crispy_tpu/models/onnx_import.py``).
+The port's copy of ``crispy_tpu/models/spm.py``; the protobuf field reader
+(``_fields``) is ``models/onnx_import``'s.
 
 The reference's NeMo-family bundles (parakeet-tdt, canary, gigaam — served
 by transcribe-rs per managers/transcription.rs:119-172) tokenize with
@@ -18,46 +18,12 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence
+
+from .onnx_import import _fields
 
 NORMAL, UNKNOWN, CONTROL, USER_DEFINED, UNUSED, BYTE = 1, 2, 3, 4, 5, 6
 _WS = "▁"  # the SentencePiece meta-space
-
-
-def _read_varint(buf: memoryview, pos: int) -> Tuple[int, int]:
-    result = 0
-    shift = 0
-    while True:
-        b = buf[pos]
-        pos += 1
-        result |= (b & 0x7F) << shift
-        if not (b & 0x80):
-            return result, pos
-        shift += 7
-
-
-def _fields(buf: memoryview) -> Iterator[Tuple[int, int, object]]:
-    """Iterate (field_number, wire_type, value) over a protobuf message."""
-    pos = 0
-    n = len(buf)
-    while pos < n:
-        tag, pos = _read_varint(buf, pos)
-        field, wire = tag >> 3, tag & 7
-        if wire == 0:  # varint
-            val, pos = _read_varint(buf, pos)
-        elif wire == 1:  # 64-bit
-            val = bytes(buf[pos: pos + 8])
-            pos += 8
-        elif wire == 2:  # length-delimited
-            ln, pos = _read_varint(buf, pos)
-            val = buf[pos: pos + ln]
-            pos += ln
-        elif wire == 5:  # 32-bit
-            val = bytes(buf[pos: pos + 4])
-            pos += 4
-        else:
-            raise ValueError(f"unsupported wire type {wire}")
-        yield field, wire, val
 
 
 @dataclass

@@ -228,11 +228,28 @@ class TestPipeline:
         assert tm_.get_current_model() == "b"
 
     def test_diarization_is_not_ported(self, setup):
+        """Diarization itself is ported; its first route for a downloaded
+        net, the ONNX executor, is not (ROADMAP queue 1, item 10). Such a
+        net's executor step raises NotImplementedError, the native loader
+        is tried next (it cannot map this graph), and the transcript is
+        diarized by the stand-in nets, with one diarization-fallback event
+        that carries both errors."""
+        import onnx_builder as ob
+
         tm_, bus, engine, tmp = setup
+        seg = tm_.model_manager.model_path("diarize-segmentation")
+        seg.parent.mkdir(parents=True, exist_ok=True)
+        ob.write_model(seg, [ob.node("CustomOp", ["waveform"], ["logits"])],
+                       [("waveform", 1, [None, 1, 160000])], [("logits", 1, [None, 589, 7])])
         wav = make_wav(tmp / "d.wav", seconds=2.0)
-        with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-            tr.run_transcription(str(wav), tm_, "fake-model", diarization={"enabled": True})
-        assert engine.calls == []
+        text = tr.run_transcription(str(wav), tm_, "fake-model", diarization={"enabled": True})
+        assert text == "[Speaker 1|0.0]\nchunk1-0"
+        assert engine.calls == [(1, tr.CHUNK_SAMPLES)]
+        evs = [p for e, p in bus.history if e == "diarization-fallback"]
+        assert [e["net"] for e in evs] == ["segmentation"]
+        assert "queue 1, item 10" in evs[0]["error"]
+        assert "native port: expected 2 tensor(s)" in evs[0]["error"]
+        assert tm_.get_state(str(wav)).status == "completed"
 
 
 class TestCheckpointResume:
@@ -379,6 +396,41 @@ def test_cli_transcribe_writes_output(tmp_path, data_root, ggml_file, capsys):
     assert json.loads(capsys.readouterr().err.strip().splitlines()[-1])["status"] == "completed"
     rc = cli.main(["transcribe", str(wav), "--model", "parakeet-tdt-0.6b-v2", "--device", "cpu"])
     assert rc == 1
+
+
+def test_cli_transcribe_diarize(tmp_path, data_root, ggml_file, capsys):
+    """--diarize: whisper's timestamped decode, the speakers tagged."""
+    install_model(data_root / "Models", ggml_file)
+    wav = speech_wav(tmp_path / "rec.wav", 3.0, sr=16000)
+    rc = cli.main(["transcribe", str(wav), "--model", "small", "--device", "cpu",
+                   "--diarize"])
+    out = capsys.readouterr()
+    assert rc == 0 and out.out.startswith("[Speaker 1|")
+    assert out.out.strip() == tr.load_transcription_result(str(wav))
+
+
+@needs_jax
+def test_whisper_diarized_transcription_matches_jax(tmp_path, data_root, ggml_file):
+    """run_transcription with diarization through load_engine's whisper
+    engine: one batched timestamped decode (the model's own method), then
+    the JAX package's run_diarization of the same segments and audio gives
+    the same tagged text."""
+    from crispy_tpu.engine import diarization as jd
+
+    install_model(data_root / "Models", ggml_file)
+    wav = speech_wav(tmp_path / "talk.wav", 40.0, sr=16000)  # 2 chunks, one batch
+    tm_ = tr.TranscriptionManager(ModelManager(models_dir=data_root / "Models"),
+                                  bus=EventBus(), device="cpu")
+    got = tr.run_transcription(str(wav), tm_, "small", diarization={"enabled": True})
+    audio, _ = wavio.read_wav_mono(wav)
+    chunks = np.zeros((2, tr.CHUNK_SAMPLES), np.float32)
+    chunks.reshape(-1)[: audio.size] = audio
+    segs = tm_.engine.transcribe_batch_with_timestamps(chunks, [0, 30])
+    assert segs == tm_.engine.model.transcribe_chunks_with_timestamps(chunks, [0, 30])
+    parts = [(s, min(e, audio.size / 16000), t) for chunk in segs for s, e, t in chunk
+             if t.strip()]
+    assert parts and got == jd.run_diarization(audio, 16000, parts)
+    assert got.startswith("[Speaker 1|")
 
 
 def test_manager_raises_without_a_card(monkeypatch, tmp_path):
