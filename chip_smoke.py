@@ -116,9 +116,31 @@ Phases, each printed on its own lines; any failure exits non-zero:
      tags in the text, its speaker segments equal to a separate
      ``diarize`` of the same 16 kHz audio on the card.
 
-The Whisper, ASR and diarization phases run no hand-written kernel (the
-JAX package's models have no Pallas kernel), so they add no row to the
-kernels line.
+ 12. the ONNX executor: (a) parakeet-tdt-0.6b-v3 as an int8 ONNX bundle at
+     its published widths (``tools/bench_bundles.make_parakeet_sized_bundle``,
+     random weights from seed 0, no params.npz) through ``load_engine`` on
+     the card, which must give the port's ``OnnxTdtEngine``: B=8 and B=16 x
+     30 s, a warm-up then 3 calls (RTF, median), the encoder by CUDA events
+     (one call under CUDA's sync debug mode ``error``: no host sync),
+     executor nodes a call, one encoder call and one decode loop under
+     torch.profiler (launches, device busy share), peak memory, the seconds
+     to build and load the bundle; (b) the same bundle on the card against
+     the CPU on 2 x 10 s: the first layer's DynamicQuantizeLinear codes (how
+     many differ), its MatMulInteger on the CPU's codes (bit-equal), the
+     encoder output within 5e-2 of its max, every token and duration
+     decision of the decode loop on the card's encoder output equal off
+     near-ties (a CPU top-two margin below 1e-2 of the step's largest
+     |logit|, counted); (c) the phase-8 WAV through ``run_transcription`` and
+     that engine: ten chunks in one 16-bucket on the card, wall and RTF;
+     (d) the gigaam and sensevoice CTC layouts and the small parakeet TDT
+     layout of the JAX package's engine tests through ``load_engine``, card
+     against CPU (equal texts and word segments), and one ConvInteger graph
+     and one Loop graph with a condition computed on the card (equal
+     outputs).
+
+The Whisper, ASR, diarization and ONNX phases run no hand-written kernel
+(the JAX package's models and executor have no Pallas kernel), so they add
+no row to the kernels line.
 
 Then one JSON line with every kernel's numbers (launches from phases 3, 4
 and 9b), and as the last line
@@ -198,6 +220,17 @@ DIAR_CLIP_SECONDS = 60  # phase 11a: the host-VAD route
 STAGED_CHECK_SECONDS = 150  # phase 11b: card vs CPU on the from_device route
 NET_RTOL = 1e-4  # PyanNet logits and CAM++ embeddings card vs CPU, x their max
 MARGIN_TIE = 1e-4  # an energy margin this near 0 may decide speech differently card vs CPU
+
+ONNX_DIMS: dict = {}  # phase 12: bench_bundles' defaults, parakeet-tdt-0.6b-v3's published widths
+ONNX_CHECK_SECONDS = 10  # phase 12b: B=2 chunks of this length, card vs CPU
+# phase 12b, the int8 encoder's output card vs CPU, x its max: a 1e-6 difference
+# in an activation flips uint8 codes at their rounding boundaries, and each flip
+# moves a whole row of the next product by one quantum
+ENC_INT8_RTOL = 5e-2
+# phase 12b: a divergent TDT decision passes below this top-two margin, x
+# max|logit|: a code flipped in the joint's own quantized products moves its
+# logits by about one activation quantum times the weight scale
+INT8_TIE_RTOL = 1e-2
 
 
 def fail(msg: str) -> None:
@@ -1257,17 +1290,17 @@ def asr_chunks(rng, B: int) -> np.ndarray:
 
 
 def near_tie(ties: list, family: str, where: str, cpu_logits, card_pick: int,
-             cpu_pick: int) -> None:
+             cpu_pick: int, tol: float = TIE_RTOL) -> None:
     """A card decision that differs from the CPU path's passes only at a
-    near-tie: the CPU's top-two margin at that step below TIE_RTOL of the
+    near-tie: the CPU's top-two margin at that step below ``tol`` of the
     step's largest |logit|. Printed and counted."""
     lg = np.asarray(cpu_logits, np.float64)
     top2 = np.sort(lg)[-2:]
     ratio = float((top2[1] - top2[0]) / np.abs(lg).max())
     print(f"[10] {family}: a decision differs card vs CPU at {where}: card {card_pick}, CPU "
           f"{cpu_pick}; CPU top-two margin {ratio:.3e} of the step's largest |logit| "
-          f"(passes below {TIE_RTOL})")
-    if not ratio < TIE_RTOL:
+          f"(passes below {tol})")
+    if not ratio < tol:
         fail(f"{family}: the card's decision at {where} differs from the CPU's off a near-tie")
     ties.append((family, where, ratio))
 
@@ -1963,6 +1996,326 @@ def diarization_phase(torch, dev, card: str, wav: Path, manager) -> None:
           f"{time.perf_counter() - t3:.1f} s")
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 12: the ONNX executor with the catalog's int8 parakeet bundle
+# ---------------------------------------------------------------------------
+
+def onnx_bundle(mm, mid: str):
+    """parakeet-tdt-0.6b-v3's published widths as an int8 ONNX bundle of
+    random weights (tools/bench_bundles, seed 0) in the model manager's
+    directory for ``mid``, with no params.npz; returns the seconds it took."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import bench_bundles  # puts tests/ on sys.path itself
+
+    t0 = time.perf_counter()
+    bench_bundles.make_parakeet_sized_bundle(mm.model_path(mid), seed=0, **ONNX_DIMS)
+    return time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def first_op_output(ox, op_type: str):
+    """The outputs of the first call of one executor op while the block runs
+    (one list entry per call of the block's encoder)."""
+    fn, out = ox._OPS[op_type], []
+
+    def rec(node, *args):
+        res = fn(node, *args)
+        if not out or node.outputs == out[0][0].outputs:  # the first node's calls
+            out.append((node, res))
+        return res
+
+    for name in [k for k, v in ox._OPS.items() if v is fn]:
+        ox._OPS[name] = rec
+    try:
+        yield out
+    finally:
+        for name in [k for k, v in ox._OPS.items() if v is rec]:
+            ox._OPS[name] = fn
+
+
+def onnx_fullwidth(torch, mm, rng, card: str, mid: str):
+    """[12a] the full-width int8 bundle through load_engine on the card:
+    RTF at B=8 and B=16, the encoder by CUDA events (one call under CUDA's
+    sync debug mode), the decode loop under torch.profiler, executor nodes
+    a call, peak memory. Returns the card's engine."""
+    from crispy_tpu_torch.engine import onnx_engines as oe
+    from crispy_tpu_torch.engine import transcription as tr
+
+    build_s = onnx_bundle(mm, mid)
+    size = sum(p.stat().st_size for p in mm.model_path(mid).glob("*.onnx"))
+    t0 = time.perf_counter()
+    eng = tr.load_engine(mid, mm)  # default device: the card
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if type(eng) is not oe.OnnxTdtEngine or eng.device.type != "cuda":
+        fail(f"load_engine gave {type(eng).__name__} on {eng.device} for the ONNX bundle")
+    n_w = sum(v.numel() for v in eng._enc_big.values()) + sum(
+        v.numel() for v in eng._dec_big.values())
+    print(f"[12a] {mid} as an int8 ONNX bundle (tools/bench_bundles, seed 0, "
+          f"{ONNX_DIMS or 'published widths'}): {size / 1e6:.1f} MB of .onnx, "
+          f"{n_w / 1e6:.1f} M weight values on the card; build {build_s:.1f} s, load_engine "
+          f"on the card {load_s:.1f} s")
+    x = asr_chunks(rng, 16)
+    xc = torch.from_numpy(x).cuda()
+    for B in (8, 16):
+        xb = xc[:B]
+        eng.transcribe_batch(xb)  # warm-up: uploads the static initializers once
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls, texts = [], None
+        for _ in range(3):
+            t0 = time.perf_counter()
+            texts = eng.transcribe_batch(xb)
+            walls.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        enc_ms = []
+        for _ in range(3):
+            ev[0].record()
+            enc = eng.encoder_output(xb)
+            ev[1].record()
+            torch.cuda.synchronize()
+            enc_ms.append(ev[0].elapsed_time(ev[1]))
+        enc_nodes = dict(eng.enc.counts)
+        torch.cuda.set_sync_debug_mode("error")  # any host sync in the encoder call raises
+        try:
+            eng.encoder_output(xb)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, n, iters = eng.decode(enc)
+        torch.cuda.synchronize()
+        dec_wall = time.perf_counter() - t0
+        iters = int(iters)
+        joint_nodes = dict(eng.dec.counts)
+        prof_e = profile_call(torch, lambda: eng.encoder_output(xb))
+        prof = profile_call(torch, lambda: eng.decode(enc))
+        audio_s = B * ASR_SECONDS
+        rtf = float(np.median(walls)) / audio_s
+        print(f"[12a] B={B} x 30 s: transcribe_batch host to host "
+              f"{', '.join(f'{w:.3f}' for w in walls)} s, RTF {rtf:.4e} (median of 3); "
+              f"encoder {', '.join(f'{m:.3f}' for m in enc_ms)} ms (CUDA events; one more "
+              f"call under sync debug mode 'error': no host sync), "
+              f"{enc_nodes['device']} executor nodes on the card and {enc_nodes['host']} on "
+              f"the host a call; decode loop {dec_wall * 1e3:.1f} ms host wall over {iters} "
+              f"iterations ({dec_wall * 1e3 / iters:.3f} ms each; {-(-iters // oe.TDT_SYNC_EVERY)} "
+              f"host checks of the end), joint call {joint_nodes['device']} nodes on the card "
+              f"and {joint_nodes['host']} on the host, tokens per row {n.tolist()}; peak "
+              f"memory {peak / 2**30:.2f} GiB [{card}]")
+        print(f"[12a] torch.profiler over one encoder call at B={B}: {prof_e['launches']} "
+              f"kernel launches, device time {prof_e['device_ms']:.3f} ms, device busy "
+              f"{100 * prof_e['busy_share']:.1f}% of its {prof_e['wall_ms']:.3f} ms; top kernels "
+              f"{prof_e['top']}")
+        print(f"[12a] torch.profiler over one decode loop at B={B}: {prof['launches']} kernel "
+              f"launches = {prof['launches'] / iters:.1f} per iteration, device time "
+              f"{prof['device_ms']:.3f} ms, device busy {100 * prof['busy_share']:.1f}% of its "
+              f"{prof['wall_ms']:.3f} ms under the profiler; top kernels {prof['top']}")
+        if len(texts) != B or not all(texts):
+            fail(f"the ONNX TDT engine returned empty texts at B={B}: {texts}")
+    return eng
+
+
+def onnx_card_vs_cpu(torch, mm, rng, mid: str, eng, ties: list) -> None:
+    """[12b] the same bundle on the card against the CPU path, B=2 x 10 s:
+    the first layer's DynamicQuantizeLinear codes, its MatMulInteger on
+    identical codes (bit-equal), the encoder output, and every token and
+    duration decision of the decode loop on the card's encoder output."""
+    from crispy_tpu_torch.engine import transcription as tr
+    from crispy_tpu_torch.models import onnx_exec as ox
+
+    t0 = time.perf_counter()
+    cpu = tr.load_engine(mid, mm, device="cpu")
+    x = np.stack([speechlike(ONNX_CHECK_SECONDS * 16000, rng, 105.0 + 40.0 * b, sr=16000)
+                  for b in range(2)])
+    with first_op_output(ox, "DynamicQuantizeLinear") as dq:
+        enc_c = eng.encoder_output(torch.from_numpy(x).cuda())
+        enc_h = cpu.encoder_output(x)
+    (node, (q_c, s_c, z_c)), (_, (q_h, s_h, z_h)) = dq[0], dq[1]
+    n_codes = int((q_c.cpu() != q_h).sum())
+    # the first MatMulInteger of the graph on the CPU's codes, on both devices
+    mmi = next(n for n in eng.enc.graph.nodes if n.op_type == "MatMulInteger")
+    w = eng.enc.graph.initializers[mmi.inputs[1]]
+    wz = eng.enc.graph.initializers[mmi.inputs[3]]
+    y_h = ox._mmi(mmi, q_h, torch.from_numpy(w.copy()), z_h, torch.from_numpy(wz.copy()))
+    y_c = ox._mmi(mmi, q_h.cuda(), torch.from_numpy(w.copy()).cuda(), z_h.cuda(),
+                  torch.from_numpy(wz.copy()).cuda())
+    mmi_equal = torch.equal(y_c.cpu(), y_h)
+    enc_err = rel_err(enc_c, enc_h)
+    # the decode loops on the card's encoder output: card against CPU (the
+    # CPU engine's probe call first, so that both records start at step 0)
+    cpu._pin_heads(enc_c.shape[0], enc_c.shape[2])
+    with recorded(eng, "_joint") as steps_c:
+        toks_c, times_c, n_c, it_c = eng.decode(enc_c)
+    with recorded(cpu, "_joint") as steps_h:
+        toks_h, times_h, n_h, it_h = cpu.decode(enc_c.cpu())
+    V = eng.vocab_size
+    diverged, worst = None, 0.0
+    for i, ((lc, _), (lh, _)) in enumerate(zip(steps_c, steps_h)):
+        lc, lh = lc.cpu().numpy(), lh.numpy()
+        for head, sl in (("token", slice(0, V + 1)), ("duration", slice(V + 1, None))):
+            pc, ph = lc[:, sl].argmax(-1), lh[:, sl].argmax(-1)
+            for b in np.nonzero(pc != ph)[0]:
+                near_tie(ties, mid, f"row {b} iteration {i} ({head})", lh[b, sl], int(pc[b]),
+                         int(ph[b]), tol=INT8_TIE_RTOL)
+                diverged = i
+        if diverged is not None:
+            break
+        worst = max(worst, float(np.abs(lc - lh).max() / np.abs(lh).max()))
+    same = (torch.equal(toks_c.cpu(), toks_h) and torch.equal(times_c.cpu(), times_h)
+            and torch.equal(n_c.cpu(), n_h))
+    print(f"[12b] card vs CPU on B=2 x {ONNX_CHECK_SECONDS} s ({time.perf_counter() - t0:.1f} s, "
+          f"the CPU engine's load included): first DynamicQuantizeLinear (to "
+          f"{node.outputs[0]}) codes differing {n_codes} of {q_h.numel()}, scale "
+          f"{float(s_c):.9g} vs {float(s_h):.9g}, "
+          f"zero point {int(z_c)} vs {int(z_h)}; its MatMulInteger (to {mmi.outputs[0]}, "
+          f"{list(q_h.shape)} x {list(w.shape)}) on the CPU's codes bit-equal card vs CPU: "
+          f"{mmi_equal}; encoder output max|diff| {enc_err:.3e} of its largest magnitude (tol "
+          f"{ENC_INT8_RTOL}); decode loop on the card's encoder output: {int(it_c)} iterations "
+          f"on the card, {int(it_h)} on the CPU, joint logits within {worst:.3e} of their "
+          f"largest magnitude on the agreeing steps, first divergent decision at {diverged}, "
+          f"tokens, times and counts equal {same} (n = {n_h.tolist()})")
+    if not mmi_equal:
+        fail("MatMulInteger differs card vs CPU on identical codes")
+    if not enc_err <= ENC_INT8_RTOL:
+        fail(f"the ONNX encoder output differs card vs CPU by {enc_err}")
+    if diverged is None and not same:
+        fail("ONNX TDT tokens differ card vs CPU with no divergent decision")
+
+
+def onnx_run_transcription(torch, mm, mid: str, eng, wav: Path, card: str) -> None:
+    """[12c] the phase-8 WAV (5 min, 48 kHz) through run_transcription and
+    the engine of [12a]: ten chunks in one 16-bucket."""
+    from crispy_tpu_torch.api.events import EventBus
+    from crispy_tpu_torch.engine import transcription as tr
+
+    bus = EventBus()
+    bus.keep_history = True
+    seen = []
+    inner = eng.transcribe_batch
+
+    def recording(chunks, language="en"):
+        seen.append((type(chunks).__name__, str(getattr(chunks, "device", "host")),
+                     tuple(chunks.shape)))
+        return inner(chunks, language=language)
+
+    eng.transcribe_batch = recording
+    tm = tr.TranscriptionManager(mm, bus=bus, engine_loader=lambda model_id, m: eng)
+    try:
+        t0 = time.perf_counter()
+        text = tr.run_transcription(str(wav), tm, mid)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del eng.transcribe_batch
+    st = tm.get_state(str(wav))
+    stages = [(p["stage"], round(p["seconds"], 4), p.get("chunks"))
+              for e, p in bus.history if e == "stage-timing"]
+    print(f"[12c] run_transcription of the phase-8 WAV ({E2E_SECONDS} s, 48 kHz) through the "
+          f"engine of [12a]: status {st.status if st else None}, wall {wall:.3f} s, RTF "
+          f"{wall / E2E_SECONDS:.3e} (the model loaded before), chunk batches {seen}, stages "
+          f"{stages}, {len(text or '')} characters [{card}]")
+    if st is None or st.status != "completed" or not text:
+        fail(f"the ONNX run_transcription ended in {st}")
+    if seen != [("Tensor", "cuda:0", (16, 30 * 16000))]:
+        fail(f"expected one 16-chunk bucket on the card: {seen}")
+
+
+def onnx_layouts(torch, rng) -> None:
+    """[12d] the gigaam and sensevoice CTC layouts and the small parakeet TDT
+    layout of the JAX package's engine tests through load_engine, card
+    against CPU (equal texts); one ConvInteger graph and one Loop graph with
+    a condition computed on the device, card against CPU (equal outputs)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import onnx_builder as ob
+    import test_onnx_engines as layouts
+
+    from crispy_tpu_torch.engine import transcription as tr
+    from crispy_tpu_torch.models import onnx_exec as ox
+    from crispy_tpu_torch.models.registry import ModelManager
+
+    x = np.stack([speechlike(3 * 16000, rng, 100.0 + 50.0 * b, sr=16000) for b in range(4)])
+    with tempfile.TemporaryDirectory() as tmp:
+        mm = ModelManager(models_dir=Path(tmp) / "Models")
+        results = {}
+        for mid, make in (("gigaam-v3-e2e-ctc", layouts.make_gigaam_bundle),
+                          ("sense-voice-int8", layouts.make_sensevoice_bundle),
+                          ("parakeet-tdt-0.6b-v2", layouts.make_parakeet_bundle)):
+            mm.model_path(mid).mkdir(parents=True)
+            make(mm.model_path(mid))
+            card_eng = tr.load_engine(mid, mm)  # default device: the card
+            cpu_eng = tr.load_engine(mid, mm, device="cpu")
+            got, want = card_eng.transcribe_batch(x), cpu_eng.transcribe_batch(x)
+            segs = (card_eng.transcribe_batch_with_timestamps(x, [0.0] * 4),
+                    cpu_eng.transcribe_batch_with_timestamps(x, [0.0] * 4))
+            results[mid] = (type(card_eng).__name__, got == want, segs[0] == segs[1])
+            if got != want or segs[0] != segs[1]:
+                fail(f"{mid} layout: card {got} vs CPU {want}")
+        g = np.random.default_rng(SEED + 7)
+        xi = g.integers(0, 256, (2, 6, 40), dtype=np.uint8)
+        w = g.integers(-128, 128, (8, 3, 5), dtype=np.int8)
+        conv = ob.model_proto([ob.node("ConvInteger", ["x", "w", "xz", "wz"], ["y"], group=2,
+                                       strides=[2], pads=[2, 1])],
+                              [("x", 2, [2, 6, 40])], [("y", 6, None)],
+                              {"w": w, "xz": np.uint8(131), "wz": np.int8(-2)})
+        body = ob.graph_proto(
+            [ob.node("Mul", ["acc_in", "two"], ["acc_out"]),
+             ob.node("ReduceMax", ["acc_out"], ["a0"], keepdims=0),
+             ob.node("Less", ["a0", "limit"], ["cond_out"]),
+             ob.node("Identity", ["acc_out"], ["snap"])],
+            [("iter", 7, []), ("cond_in", 9, []), ("acc_in", 1, [3])],
+            [("cond_out", 9, []), ("acc_out", 1, [3]), ("snap", 1, [3])],
+            {"two": np.full(3, 2.0, np.float32)})
+        loop = ob.model_proto([ob.node("Loop", ["M", "cond", "acc0"], ["acc", "snaps"],
+                                       body=body)],
+                              [("acc0", 1, [3]), ("limit", 1, [])],
+                              [("acc", 1, [3]), ("snaps", 1, [None, 3])],
+                              {"M": np.int64(40), "cond": np.array(True)})
+        graphs = {}
+        for name, data, inputs in (
+                ("ConvInteger", conv, {"x": xi}),
+                ("Loop", loop, {"acc0": np.array([0.5, 1.0, 0.25], np.float32),
+                                "limit": np.array(1000.0, np.float32)})):
+            path = Path(tmp) / f"{name}.onnx"
+            path.write_bytes(data)
+            r = ox.OnnxRunner.load(path).validate()
+            on_card = r(**{k: torch.from_numpy(v).cuda() for k, v in inputs.items()})
+            on_cpu = r(**{k: torch.from_numpy(v) for k, v in inputs.items()})
+            equal = all(torch.equal(on_card[k].cpu(), on_cpu[k]) for k in on_cpu)
+            graphs[name] = (equal, {k: list(v.shape) for k, v in on_cpu.items()},
+                            str(next(iter(on_card.values())).device))
+            if not equal:
+                fail(f"the {name} graph differs card vs CPU")
+    print(f"[12d] layouts through load_engine, card vs CPU (engine, texts equal, word segments "
+          f"equal): {results}; graphs card vs CPU (outputs equal, shapes, device): {graphs}")
+
+
+def onnx_phase(torch, card: str, wav: Path) -> None:
+    from crispy_tpu_torch.models.registry import ModelManager
+
+    t0 = time.perf_counter()
+    ties: list = []
+    orng = np.random.default_rng(SEED + 6)
+    mid = "parakeet-tdt-0.6b-v3"
+    with tempfile.TemporaryDirectory() as tmp:
+        with tempfile.TemporaryDirectory() as data:
+            os.environ["CRISPY_DATA_DIR"] = data  # sidecars stay out of HOME
+            mm = ModelManager(models_dir=Path(tmp) / "Models")
+            with torch.no_grad():
+                eng = onnx_fullwidth(torch, mm, orng, card, mid)
+                t1 = time.perf_counter()
+                onnx_card_vs_cpu(torch, mm, orng, mid, eng, ties)
+                t2 = time.perf_counter()
+                onnx_run_transcription(torch, mm, mid, eng, wav, card)
+                t3 = time.perf_counter()
+            del eng
+            onnx_layouts(torch, orng)
+    print(f"[12] decisions that differ card vs CPU at a near-tie: {len(ties)} {ties}; 12a, 12b, "
+          f"12c, 12d took {t1 - t0:.1f}, {t2 - t1:.1f}, {t3 - t2:.1f}, "
+          f"{time.perf_counter() - t3:.1f} s")
+
+
 def main() -> int:
     # The run uses one card: show torch only the first visible one, so the
     # count it reports is the count it used.
@@ -2195,11 +2548,14 @@ def main() -> int:
     print(f"[10] decisions that differ card vs CPU at a near-tie: {len(ties)} {ties}; "
           f"phase 10 took {time.perf_counter() - t0:.1f} s")
 
-    # --- 11: speaker diarization ---------------------------------------------
+    # --- 11: speaker diarization; 12: the ONNX executor ------------------------
     t0 = time.perf_counter()
     with whisper_files:
         diarization_phase(torch, dev, card, e2e_wav, e2e_manager)
-    print(f"[11] phase 11 took {time.perf_counter() - t0:.1f} s")
+        print(f"[11] phase 11 took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        onnx_phase(torch, card, e2e_wav)
+        print(f"[12] phase 12 took {time.perf_counter() - t0:.1f} s")
 
     for r in rows:
         r["launches"] = launches[r["name"]]

@@ -595,10 +595,11 @@ def diarize(
 
 def onnx_runner(net: str, path):
     """The reference's first route for a downloaded net: its .onnx run as a
-    graph by the ONNX executor, which the port does not have yet."""
+    graph by the ONNX executor, whose diarization route (``onnx_nets``) the
+    port does not have yet."""
     raise NotImplementedError(
-        f"{net} net {path}: the ONNX executor is not ported yet "
-        "(ROADMAP queue 1, item 10)")
+        f"{net} net {path}: the ONNX executor's diarization route is not ported yet "
+        "(ROADMAP queue 1, item 10b)")
 
 
 def run_diarization(

@@ -14,10 +14,12 @@ Chunks are batched and decoded together on the card; a recording that is
 not at 16 kHz is resampled there (``resample_poly(device_out=True)``) and
 its chunk batches never leave it. The engines: whisper, and the native
 families (parakeet TDT and CTC, gigaam, canary, moonshine, sensevoice) from
-prepared bundles; the catalog's ONNX bundles and cohere wait for the ONNX
-executor (ROADMAP queue 1, item 10). With diarization on, the chunks are
-decoded with timestamps and the speaker segments of ``engine/diarization``
-tag the text.
+prepared bundles, and the catalog's ONNX bundles (parakeet TDT, gigaam and
+sensevoice CTC, cohere where its bundle is one of those layouts) through
+the ONNX executor (``engine/onnx_engines``); the ONNX enc-dec layouts
+(canary, moonshine, cohere's) wait for ROADMAP queue 1, item 10b. With
+diarization on, the chunks are decoded with timestamps and the speaker
+segments of ``engine/diarization`` tag the text.
 """
 
 from __future__ import annotations
@@ -204,8 +206,8 @@ def _on_device(chunks, device: torch.device) -> torch.Tensor:
 
 def _onnx_only(model_id: str, what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{model_id}: {what} runs through the ONNX executor, which is not ported yet "
-        "(ROADMAP queue 1, item 10)")
+        f"{model_id}: {what} runs through the ONNX encoder-decoder engine, which is not "
+        "ported yet (ROADMAP queue 1, item 10b)")
 
 
 def _has_hf_checkpoint(path: Path) -> bool:
@@ -217,9 +219,12 @@ def load_engine(model_id: str, model_manager: ModelManager, device=None) -> Engi
     (default: the card): whisper ggml files and HF checkpoint dirs; the
     native families from prepared bundles (``params.npz`` in the JAX
     package's flat layout, ``config.json``, the tokenizer) and, for
-    moonshine and parakeet CTC, from HF checkpoints. The catalog's ONNX
-    bundles and every cohere model need the ONNX executor, which is not
-    ported: they raise ``NotImplementedError``."""
+    moonshine and parakeet CTC, from HF checkpoints; else the catalog's
+    ONNX bundle through the executor, with the JAX package's engines and
+    arguments: parakeet TDT, gigaam and sensevoice (blank 0) CTC, cohere by
+    its file inventory. Canary and moonshine without ``params.npz`` (and
+    cohere's enc-dec layout) need the ONNX encoder-decoder engine, which is
+    not ported: they raise ``NotImplementedError``."""
     info = model_manager.find(model_id)
     if info is None:
         raise ValueError(f"unknown model: {model_id}")
@@ -231,7 +236,11 @@ def load_engine(model_id: str, model_manager: ModelManager, device=None) -> Engi
     if kind == "whisper":
         return _whisper_engine(model_id, path, dev)
     if kind == "cohere":
-        raise _onnx_only(model_id, "every cohere bundle")
+        # transcribe-rs's CohereModel is an external ONNX crate: the bundle's
+        # architecture is pinned at load time from its file inventory
+        from .onnx_engines import engine_from_onnx_dir
+
+        return engine_from_onnx_dir(model_id, path, device=dev)
     native = {"parakeet": _parakeet_tdt_engine, "gigaam": _gigaam_engine,
               "canary": _canary_engine, "moonshine": _moonshine_engine,
               "sensevoice": _sensevoice_engine}
@@ -246,7 +255,16 @@ def load_engine(model_id: str, model_manager: ModelManager, device=None) -> Engi
         return _moonshine(model_id, MoonshineModel.from_hf(path, name=model_id, device=dev))
     if kind == "parakeet" and _has_hf_checkpoint(path):
         return _parakeet_ctc_engine(model_id, path, dev)
-    raise _onnx_only(model_id, "a bundle without params.npz")
+    if kind in ("canary", "moonshine"):
+        raise _onnx_only(model_id, "a bundle without params.npz")
+    # the catalog bundle is the ONNX export (transcribe-rs ParakeetModel,
+    # GigaAMModel, SenseVoiceModel; managers/transcription.rs:141-156)
+    from .onnx_engines import OnnxCtcEngine, OnnxTdtEngine
+
+    if kind == "parakeet":
+        return OnnxTdtEngine(path, model_id, device=dev)
+    return OnnxCtcEngine(path, model_id, blank_id=0 if kind == "sensevoice" else None,
+                         device=dev)
 
 
 def _whisper_engine(model_id: str, path: Path, dev: torch.device) -> EngineProtocol:

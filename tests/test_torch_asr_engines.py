@@ -9,8 +9,9 @@ TDT, gigaam, canary (with its language-prompt substitution), moonshine and
 sensevoice, plus parakeet CTC and moonshine from HF checkpoints. Then
 run_transcription of a 35 s 48 kHz WAV through the Parakeet engine (two
 chunks, the tail zero-padded, resampled on the device in the port) against
-the JAX package's. The ONNX-only bundles and cohere raise
-NotImplementedError naming ROADMAP queue 1, item 10.
+the JAX package's. A bundle without params.npz is the catalog's ONNX
+export: canary and moonshine raise NotImplementedError naming ROADMAP queue
+1, item 10b; the others reach the ONNX executor (tests/test_torch_onnx_*.py).
 """
 
 import json
@@ -174,26 +175,40 @@ def test_run_transcription_text_equals_jax(tmp_path, data_root):
         ["resample", "transcribe-batch"]
 
 
+# what an empty encoder-model.onnx without params.npz gives: canary and
+# moonshine need the ONNX enc-dec engine (not ported); the others reach the
+# executor, which refuses the file (parakeet: no decoder_joint beside it)
+ONNX_ONLY = {"canary-180m-flash": (NotImplementedError, "queue 1, item 10b"),
+             "moonshine-base": (NotImplementedError, "queue 1, item 10b"),
+             "parakeet-tdt-0.6b-v3": (FileNotFoundError, "decoder_joint"),
+             "gigaam-v3-e2e-ctc": (ValueError, "no graph"),
+             "sense-voice-int8": (ValueError, "no graph"),
+             "cohere-int8": (ValueError, "no graph")}
+
+
 @pytest.mark.parametrize("model_id", list(BUNDLES) + ["cohere-int8"])
 def test_onnx_only_bundles_raise(tmp_path, model_id):
-    """A catalog bundle without params.npz (the ONNX export), and every cohere
-    model, need the ONNX executor: NotImplementedError, nothing in its place."""
+    """A catalog bundle without params.npz is the ONNX export: it loads
+    through the ONNX executor or raises, nothing in its place."""
     mm = ModelManager(models_dir=tmp_path / "Models")
     path = mm.model_path(model_id)
     path.mkdir(parents=True)
     (path / "encoder-model.onnx").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
+    err, match = ONNX_ONLY[model_id]
+    with pytest.raises(err, match=match):
         tr.load_engine(model_id, mm, device="cpu")
 
 
 def test_cohere_with_params_still_raises(tmp_path):
+    """cohere's bundle is pinned by its .onnx inventory, as in the JAX
+    package: a params.npz is not read, and with no .onnx it raises."""
     mm = ModelManager(models_dir=tmp_path / "Models")
     moonshine_bundle(mm)
     cohere = mm.model_path("cohere-int8")
     cohere.mkdir(parents=True)
     (cohere / "params.npz").write_bytes((mm.model_path("moonshine-base") / "params.npz")
                                         .read_bytes())
-    with pytest.raises(NotImplementedError, match="cohere"):
+    with pytest.raises(FileNotFoundError, match="no .onnx"):
         tr.load_engine("cohere-int8", mm, device="cpu")
 
 

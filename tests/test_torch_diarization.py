@@ -439,7 +439,7 @@ class StubManager:
 @needs_jax
 def test_run_diarization_with_downloaded_nets_matches_jax(tmp_path, monkeypatch):
     """The test_diarization_onnx files: the executor route is not ported
-    (raises, naming item 10), and the native loaders cannot map these
+    (raises, naming item 10b), and the native loaders cannot map these
     graphs, so both nets fall back to the stand-ins with an event each. The
     JAX side's executor runners are made to raise the same error, so both
     packages take the same route."""
@@ -465,7 +465,7 @@ def test_run_diarization_with_downloaded_nets_matches_jax(tmp_path, monkeypatch)
     jev = [p for e, p in jbus.history if e == "diarization-fallback"]
     assert [e["net"] for e in tev] == [e["net"] for e in jev] == ["segmentation", "embedding"]
     for t, j in zip(tev, jev):
-        assert t["error"].startswith(j["error"]) and "queue 1, item 10" in t["error"]
+        assert t["error"].startswith(j["error"]) and "queue 1, item 10b" in t["error"]
         assert "native port:" in t["error"]
 
 
