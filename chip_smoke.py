@@ -138,6 +138,36 @@ Phases, each printed on its own lines; any failure exits non-zero:
      and one Loop graph with a condition computed on the card (equal
      outputs).
 
+ 13. the ONNX enc-dec bundles and the executor's diarization nets: (a)
+     canary-180m-flash as an int8 ONNX bundle at its published widths (the
+     port's models/canary config: tools/bench_bundles' FastConformer
+     encoder, 17 layers, d 512, and ``canary_decoder``, 4 pre-LN layers, d
+     512, V 5248, eos's logit column zero so every row decodes to max_new
+     unless the loop guard ends it; random weights from seed 0, no
+     params.npz) through ``load_engine``, which must give the port's
+     ``OnnxEncDecEngine``: B=8 and B=16 x 30 s, a warm-up then 3 calls (RTF,
+     median, spread), decode steps by bucket, tokens per row, the encoder by
+     CUDA events, executor nodes a step, launches a step and the device's
+     busy share over 8 decode steps (torch.profiler), peak memory; then on 2
+     x 10 s the encoder card vs CPU (5e-2 of its max) and greedy and beam-4
+     decoding (48 tokens) of the card's encoder output on both devices,
+     every decision equal up to the first that differs, which must be a
+     near-tie (1e-2 of the largest |logit| or |score|), counted; (b)
+     pyannote-sized segmentation and CAM++-scale embedding graphs
+     (tools/bench_bundles) through ``models/onnx_nets``: card vs CPU (logits
+     of 2 windows, embeddings of 16 speech-like chunks, 1e-4 of their max),
+     the diarization hour composed as the JAX package's executor bench
+     composes it (outputs at weight 0; a non-finite output fails), 3 timed
+     calls with the graphs, the executor's LSTM and NME-SC by CUDA events,
+     and ``run_diarization`` on 150 s under a stub manager holding both
+     files: the executor route, no ``diarization-fallback``; (c) the hour
+     drill of tests/test_torch_hour_scale.py on the card in a process of
+     its own, started at the smoke's start so that its peak RSS is its own
+     (cancel past 10%, resume, diarization, sidecar; wall, peak RSS and
+     device memory); (d) the canary, moonshine-preprocess, merged-
+     decoder and cohere enc-dec layouts of the JAX package's engine tests
+     through ``load_engine``, card vs CPU (equal texts and word segments).
+
 The Whisper, ASR, diarization and ONNX phases run no hand-written kernel
 (the JAX package's models and executor have no Pallas kernel), so they add
 no row to the kernels line.
@@ -149,10 +179,12 @@ and 9b), and as the last line
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -231,6 +263,15 @@ ENC_INT8_RTOL = 5e-2
 # max|logit|: a code flipped in the joint's own quantized products moves its
 # logits by about one activation quantum times the weight scale
 INT8_TIE_RTOL = 1e-2
+
+ENCDEC_BATCHES = (8, 16)  # phase 13a: 30 s chunks a batch through the canary ONNX bundle
+ENCDEC_RUNS = 3
+ENCDEC_CHECK_NEW = 48  # phase 13a: tokens a row in the card-vs-CPU decodes (2 x 10 s)
+ENCDEC_PROFILE_STEPS = 8  # phase 13a: decode steps under torch.profiler (its trace of
+#   ~2,300 launches a step takes seconds a step to read back)
+ENCDEC_BEAM = 4
+EXEC_EMB_CHUNKS = 16  # phase 13b: embeddings card vs CPU
+DRILL_TIMEOUT = 900  # phase 13c: seconds for the hour drill's process
 
 
 def fail(msg: str) -> None:
@@ -1334,14 +1375,16 @@ def tdt_trace(pk, model, enc):
 
 
 @contextlib.contextmanager
-def recorded(module, name: str):
-    """Every return of ``module.name`` while the block runs, in a list: what
-    an engine's own calls computed, with nothing run again."""
+def recorded(module, name: str, keep=None):
+    """Every return of ``module.name`` while the block runs, in a list (or
+    what ``keep`` takes of it): what an engine's own calls computed, with
+    nothing run again."""
     fn, out = getattr(module, name), []
 
     def rec(*args, **kwargs):
-        out.append(fn(*args, **kwargs))
-        return out[-1]
+        res = fn(*args, **kwargs)
+        out.append(res if keep is None else keep(res))
+        return res
 
     setattr(module, name, rec)
     try:
@@ -1832,11 +1875,11 @@ class StagedSegmentation:
     logits enter at weight 0 (every FLOP runs and stays in the data flow),
     the decisions come from the energy-VAD margins."""
 
-    def __init__(self, net, dd, st):
-        self.net, self.dd, self.st = net, dd, st
+    def __init__(self, net, dd, st, stage: str = "segmentation forward"):
+        self.net, self.dd, self.st, self.stage = net, dd, st, stage
 
     def from_device(self, q):
-        with self.st.time("segmentation forward"):
+        with self.st.time(self.stage):
             real = self.net.from_device(q)
         if not np.isfinite(real).all():
             fail("non-finite segmentation logits")
@@ -1850,11 +1893,11 @@ class StagedEmbedding:
     """CAM++ composed the same way: its embeddings at weight 0 beside the
     stand-in's chunk statistics, tiled to the embedding width."""
 
-    def __init__(self, net, dd, st):
-        self.net, self.dd, self.st = net, dd, st
+    def __init__(self, net, dd, st, stage: str = "CAM++ forward"):
+        self.net, self.dd, self.st, self.stage = net, dd, st, stage
 
     def from_device(self, q, ranges):
-        with self.st.time("CAM++ forward"):
+        with self.st.time(self.stage):
             real = self.net.from_device(q, ranges)
         if not np.isfinite(real).all():
             fail("non-finite CAM++ embeddings")
@@ -2001,15 +2044,20 @@ def diarization_phase(torch, dev, card: str, wav: Path, manager) -> None:
 # Phase 12: the ONNX executor with the catalog's int8 parakeet bundle
 # ---------------------------------------------------------------------------
 
+def bench_bundles():
+    """tools/bench_bundles (it puts tests/ on sys.path itself)."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import bench_bundles as bb
+
+    return bb
+
+
 def onnx_bundle(mm, mid: str):
     """parakeet-tdt-0.6b-v3's published widths as an int8 ONNX bundle of
     random weights (tools/bench_bundles, seed 0) in the model manager's
     directory for ``mid``, with no params.npz; returns the seconds it took."""
-    sys.path.insert(0, str(ROOT / "tools"))
-    import bench_bundles  # puts tests/ on sys.path itself
-
     t0 = time.perf_counter()
-    bench_bundles.make_parakeet_sized_bundle(mm.model_path(mid), seed=0, **ONNX_DIMS)
+    bench_bundles().make_parakeet_sized_bundle(mm.model_path(mid), seed=0, **ONNX_DIMS)
     return time.perf_counter() - t0
 
 
@@ -2316,6 +2364,542 @@ def onnx_phase(torch, card: str, wav: Path) -> None:
           f"{time.perf_counter() - t3:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the catalog's encoder-decoder ONNX bundles and the executor's
+# diarization nets
+# ---------------------------------------------------------------------------
+
+def canary_decoder(path: Path, D: int, L: int, FF: int, HEADS: int, V: int, eos: int,
+                   max_len: int = 512, pos_scale: float = 8.0, seed: int = 1) -> None:
+    """An uncached canary-style decoder graph with int8 products (the ort
+    quantize_dynamic pattern of tools/bench_bundles): input_ids [B, S] and the
+    encoder's [B, D, T'] → logits [B, S, V]. Token embedding plus sinusoidal
+    positions, L pre-LN layers of causal self-attention over the full prefix,
+    cross-attention over the transposed encoder output and a ReLU FFN, a final
+    LN and the vocabulary product, whose eos column is zero: eos never wins,
+    so every row decodes to max_new (the worst case) unless the engine's
+    degenerate-loop guard ends it. With random weights (from ``seed``) and
+    unit positions the next token follows the last one and falls into a
+    fixed point within ~10 tokens, which the guard cuts; positions at 8x
+    make each step's token depend on its position, so rows run to max_new
+    ([13a] prints the tokens each row generated)."""
+    bb = bench_bundles()
+    import onnx_builder as ob
+
+    rng = np.random.default_rng(seed)
+    DH = D // HEADS
+    ang = np.arange(max_len)[:, None] / np.power(10000.0, np.arange(0, D, 2)[None, :] / D)
+    table = np.zeros((max_len, D), np.float32)
+    table[:, 0::2], table[:, 1::2] = np.sin(ang), np.cos(ang)
+    inits = {"emb": rng.standard_normal((V, D)).astype(np.float32), "pos": pos_scale * table,
+             "mask": np.triu(np.full((max_len, max_len), -1e4, np.float32), 1),
+             "i0": np.array([0], np.int64), "i1": np.array([1], np.int64),
+             "i2": np.array([2], np.int64), "z2": np.array([0, 0], np.int64),
+             "ax01": np.array([0, 1], np.int64),
+             "hd": np.array([0, 0, HEADS, DH], np.int64), "flat": np.array([0, 0, D], np.int64),
+             "scale": np.float32(1.0 / np.sqrt(DH))}
+    nodes = [
+        ob.node("Shape", ["input_ids"], ["ids_sh"]),
+        ob.node("Slice", ["ids_sh", "i1", "i2"], ["S1"]),
+        ob.node("Concat", ["S1", "S1"], ["SS"], axis=0),
+        ob.node("Gather", ["emb", "input_ids"], ["te"], axis=0),
+        ob.node("Slice", ["pos", "i0", "S1", "i0"], ["pe"]),
+        ob.node("Add", ["te", "pe"], ["x0"]),
+        ob.node("Slice", ["mask", "z2", "SS", "ax01"], ["cm"]),
+        ob.node("Transpose", ["encoder_states"], ["encT"], perm=[0, 2, 1]),
+    ]
+
+    def qmm(tag, x_in, shape, out, zero_col=None):
+        w, s = bb._int8_w(rng, shape)
+        if zero_col is not None:
+            w[:, zero_col] = 0
+        n, i = bb._qmatmul(tag, x_in, w, s, out)
+        nodes.extend(n)
+        inits.update(i)
+
+    def ln(tag, x_in, out):
+        inits[f"{tag}_g"] = (rng.standard_normal(D) * 0.1 + 1.0).astype(np.float32)
+        inits[f"{tag}_b"] = np.zeros(D, np.float32)
+        nodes.extend(bb._ln(tag, x_in, f"{tag}_g", f"{tag}_b", out))
+
+    def heads(tag, x_in, out, perm):
+        nodes.extend([ob.node("Reshape", [x_in, "hd"], [f"{tag}4"]),
+                      ob.node("Transpose", [f"{tag}4"], [out], perm=perm)])
+
+    def attention(p, q_in, kv_in, mask, out):
+        """Multi-head attention of q_in over kv_in, projected: out."""
+        qmm(f"{p}q", q_in, (D, D), f"{p}qf")
+        qmm(f"{p}k", kv_in, (D, D), f"{p}kf")
+        qmm(f"{p}v", kv_in, (D, D), f"{p}vf")
+        heads(f"{p}q", f"{p}qf", f"{p}qh", [0, 2, 1, 3])  # [B, H, S, DH]
+        heads(f"{p}k", f"{p}kf", f"{p}kT", [0, 2, 3, 1])  # [B, H, DH, T]
+        heads(f"{p}v", f"{p}vf", f"{p}vh", [0, 2, 1, 3])
+        nodes.extend([ob.node("MatMul", [f"{p}qh", f"{p}kT"], [f"{p}s0"]),
+                      ob.node("Mul", [f"{p}s0", "scale"], [f"{p}s1"])])
+        sc = f"{p}s1"
+        if mask is not None:
+            nodes.append(ob.node("Add", [sc, mask], [f"{p}s2"]))
+            sc = f"{p}s2"
+        nodes.extend([ob.node("Softmax", [sc], [f"{p}aw"], axis=-1),
+                      ob.node("MatMul", [f"{p}aw", f"{p}vh"], [f"{p}ctx"]),
+                      ob.node("Transpose", [f"{p}ctx"], [f"{p}ctxt"], perm=[0, 2, 1, 3]),
+                      ob.node("Reshape", [f"{p}ctxt", "flat"], [f"{p}ctxf"])])
+        qmm(f"{p}o", f"{p}ctxf", (D, D), out)
+
+    x = "x0"
+    for li in range(L):
+        p = f"d{li}"
+        ln(f"{p}sa", x, f"{p}san")
+        attention(f"{p}sa_", f"{p}san", f"{p}san", "cm", f"{p}sao")
+        nodes.append(ob.node("Add", [x, f"{p}sao"], [f"{p}x1"]))
+        ln(f"{p}ca", f"{p}x1", f"{p}can")
+        attention(f"{p}ca_", f"{p}can", "encT", None, f"{p}cao")
+        nodes.append(ob.node("Add", [f"{p}x1", f"{p}cao"], [f"{p}x2"]))
+        ln(f"{p}ff", f"{p}x2", f"{p}ffn")
+        qmm(f"{p}f1", f"{p}ffn", (D, FF), f"{p}fh")
+        nodes.append(ob.node("Relu", [f"{p}fh"], [f"{p}fr"]))
+        qmm(f"{p}f2", f"{p}fr", (FF, D), f"{p}fo")
+        nodes.append(ob.node("Add", [f"{p}x2", f"{p}fo"], [f"{p}x3"]))
+        x = f"{p}x3"
+    ln("fin", x, "xf")
+    qmm("head", "xf", (D, V), "logits", zero_col=eos)
+    ob.write_model(path, nodes, [("input_ids", 6, [None, None]),
+                                 ("encoder_states", 1, [None, D, None])],
+                   [("logits", 1, [None, None, V])], inits)
+
+
+CANARY_SPECIALS = ["<unk>", "<pad>", "</s>", "<|startoftranscript|>", "<|en|>",
+                   "<|transcribe|>", "<|pnc|>", "<|nopnc|>", "<s>"]
+
+
+def canary_bundle(d: Path, cfg, seed: int = 0) -> Path:
+    """canary's published widths (``cfg``, the port's models/canary config)
+    as an int8 ONNX bundle of random weights: tools/bench_bundles' encoder,
+    ``canary_decoder`` and a vocab.txt with canary's prompt tokens and </s>."""
+    d.mkdir(parents=True, exist_ok=True)
+    enc = cfg.encoder
+    bench_bundles().make_parakeet_sized_encoder(
+        d / "encoder-model.int8.onnx", D=enc.hidden_size, L=enc.layers,
+        FF=enc.intermediate_size, HEADS=enc.heads, seed=seed)
+    canary_decoder(d / "decoder-model.int8.onnx", D=cfg.dec_hidden, L=cfg.dec_layers,
+                   FF=cfg.dec_ffn, HEADS=cfg.dec_heads, V=cfg.vocab_size,
+                   eos=CANARY_SPECIALS.index("</s>"), seed=seed + 1)
+    vocab = CANARY_SPECIALS + [f"▁w{i}" for i in range(cfg.vocab_size - len(CANARY_SPECIALS))]
+    (d / "vocab.txt").write_text("\n".join(vocab), encoding="utf-8")
+    return d
+
+
+def generated(tokens: np.ndarray, P: int, eos: int) -> List[int]:
+    """Tokens each row generated before its eos."""
+    out = []
+    for row in tokens:
+        hits = np.nonzero(row[P:] == eos)[0]
+        out.append(int(hits[0]) if hits.size else row.size - P)
+    return out
+
+
+def encdec_fullwidth(torch, mm, rng, card: str, mid: str):
+    """[13a] the full-width int8 canary bundle through load_engine on the card:
+    RTF at B=8 and B=16 on worst-case decoding, the encoder by CUDA events,
+    decode steps a bucket, executor nodes and launches a step, the device's
+    busy share of one bucket's loop, peak memory. Returns the engine."""
+    from collections import Counter
+
+    from crispy_tpu_torch.engine import onnx_engines as oe
+    from crispy_tpu_torch.engine import transcription as tr
+    from crispy_tpu_torch.models.canary import CONFIGS
+
+    cfg = CONFIGS[mid]
+    t0 = time.perf_counter()
+    path = canary_bundle(mm.model_path(mid), cfg)
+    build_s = time.perf_counter() - t0
+    size = sum(p.stat().st_size for p in path.glob("*.onnx"))
+    t0 = time.perf_counter()
+    eng = tr.load_engine(mid, mm)  # default device: the card
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if type(eng) is not oe.OnnxEncDecEngine or eng.device.type != "cuda":
+        fail(f"load_engine gave {type(eng).__name__} on {eng.device} for the enc-dec bundle")
+    n_w = [sum(v.size for v in r.graph.initializers.values()) for r in (eng.enc, eng.dec)]
+    P = len(eng.prompt_ids)
+    print(f"[13a] {mid} as an int8 ONNX bundle (tools/bench_bundles encoder, canary_decoder, "
+          f"seed 0) at its published widths (encoder {cfg.encoder.layers} layers, d "
+          f"{cfg.encoder.hidden_size}, {cfg.encoder.heads} heads, FFN "
+          f"{cfg.encoder.intermediate_size}; decoder {cfg.dec_layers} layers, d {cfg.dec_hidden}, "
+          f"{cfg.dec_heads} heads, FFN {cfg.dec_ffn}, V {cfg.vocab_size}): {n_w[0] / 1e6:.3f} M "
+          f"encoder and {n_w[1] / 1e6:.3f} M decoder weight values, {size / 1e6:.1f} MB of "
+          f".onnx; build {build_s:.1f} s, load_engine on the card {load_s:.1f} s; prompt "
+          f"{eng.prompt_ids}, eos {eng.eos_id}, max_new {eng.max_new}, buckets "
+          f"{eng._buckets(P)[1]}, host read of done every {eng.SYNC_EVERY} steps")
+    xc = torch.from_numpy(asr_chunks(rng, max(ENCDEC_BATCHES))).cuda()
+    for B in ENCDEC_BATCHES:
+        xb = xc[:B]
+        t0 = time.perf_counter()
+        eng.transcribe_batch(xb)  # warm-up: uploads the static initializers once
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        with recorded(eng, "_decode", keep=lambda lg: int(lg.shape[1])) as lens, \
+                recorded(eng, "_decode_tokens") as toks:
+            for _ in range(ENCDEC_RUNS):
+                t0 = time.perf_counter()
+                texts = eng.transcribe_batch(xb)
+                walls.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        steps = dict(sorted(Counter(lens[: len(lens) // ENCDEC_RUNS]).items()))
+        gen = generated(toks[-1], P, eng.eos_id)
+        nodes = dict(eng.dec.counts)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        enc_ms = []
+        for _ in range(3):
+            ev[0].record()
+            enc = eng.encoder_output(xb)
+            ev[1].record()
+            torch.cuda.synchronize()
+            enc_ms.append(ev[0].elapsed_time(ev[1]))
+        enc_nodes = dict(eng.enc.counts)
+        S = eng._buckets(P)[1][0]
+        s0 = S - ENCDEC_PROFILE_STEPS
+
+        def last_steps():
+            toks0 = eng._prompted(B, S, eng.prompt_ids)
+            toks0[:, P:s0] = torch.from_numpy(toks[-1][:, P:s0].astype(np.int32))
+            done = torch.zeros(B, dtype=torch.bool, device=xb.device)
+            return eng._greedy_bucket(toks0, enc, eng._dec_extra(B, S), s0, done, P)
+
+        t0 = time.perf_counter()
+        with recorded(eng, "_decode", keep=lambda lg: 0) as ran:
+            prof = profile_call(torch, last_steps)
+        prof_s = time.perf_counter() - t0
+        n_steps = len(ran)
+        rtf = float(np.median(walls)) / (B * ASR_SECONDS)
+        spread = (max(walls) - min(walls)) / float(np.median(walls))
+        print(f"[13a] B={B} x 30 s: transcribe_batch host to host "
+              f"{', '.join(f'{w:.3f}' for w in walls)} s, RTF {rtf:.4e} (median of "
+              f"{ENCDEC_RUNS}, spread {100 * spread:.1f}%; the warm-up call {warm_s:.3f} s); "
+              f"decode steps by bucket length "
+              f"{steps}, tokens generated per row {gen}; encoder "
+              f"{', '.join(f'{m:.3f}' for m in enc_ms)} ms (CUDA events), {enc_nodes['device']} "
+              f"executor nodes on the card and {enc_nodes['host']} on the host a call; decoder "
+              f"{nodes['device']} nodes on the card and {nodes['host']} on the host a step; "
+              f"peak memory {peak / 2**30:.2f} GiB [{card}]")
+        print(f"[13a] torch.profiler over the first bucket's last {n_steps} steps at B={B} "
+              f"(S={S}, the loop's own code): {prof['launches']} kernel launches = "
+              f"{prof['launches'] / n_steps:.1f} a step, {prof['wall_ms'] / n_steps:.3f} ms a "
+              f"step, device time {prof['device_ms']:.3f} ms, device busy "
+              f"{100 * prof['busy_share']:.1f}% of its {prof['wall_ms']:.3f} ms under the "
+              f"profiler ({prof_s:.1f} s with the trace's read-back); top kernels {prof['top']}")
+        if len(texts) != B or not all(texts):
+            fail(f"the ONNX enc-dec engine returned empty texts at B={B}: {texts}")
+    return eng
+
+
+def encdec_card_vs_cpu(torch, mm, rng, mid: str, eng, ties: list) -> None:
+    """[13a] the same bundle on the card against the CPU path on 2 x 10 s:
+    the encoder output, then greedy and beam-4 decoding (ENCDEC_CHECK_NEW
+    tokens) of the card's encoder output on both devices, every decision
+    equal up to the first that differs, which must be a near-tie."""
+    from crispy_tpu_torch.engine import onnx_engines as oe
+    from crispy_tpu_torch.engine import transcription as tr
+
+    t0 = time.perf_counter()
+    cpu = tr.load_engine(mid, mm, device="cpu")
+    x = np.stack([speechlike(ONNX_CHECK_SECONDS * 16000, rng, 110.0 + 35.0 * b, sr=16000)
+                  for b in range(2)])
+    enc_c = eng.encoder_output(torch.from_numpy(x).cuda())
+    enc_h = cpu.encoder_output(x)
+    enc_err = rel_err(enc_c, enc_h)
+    if not enc_err <= ENC_INT8_RTOL:
+        fail(f"the ONNX canary encoder output differs card vs CPU by {enc_err}")
+    P, eos = len(eng.prompt_ids), eng.eos_id
+    best = {}
+    saved = eng.max_new, cpu.max_new
+    eng.max_new = cpu.max_new = ENCDEC_CHECK_NEW
+    try:
+        # greedy: every step's argmax on both devices (step i writes position
+        # P + i); the first that differs on a row still running is held to
+        # the CPU's logits there, recomputed on the CPU's own prefix
+        picks = {}
+        for name, e, enc in (("card", eng, enc_c), ("cpu", cpu, enc_c.cpu())):
+            with recorded(e, "_decode", keep=lambda lg: lg.argmax(-1).cpu().numpy()) as am:
+                picks[name] = (e._decode_tokens(enc, 2, e.prompt_ids, 1), am)
+        (tc, am_c), (th, am_h) = picks["card"], picks["cpu"]
+        first = None
+        for i, (a, b) in enumerate(zip(am_c, am_h)):
+            s = P + i
+            live = [r for r in range(2) if eos not in th[r, P:s]]
+            bad = [r for r in live if a[r, s - 1] != b[r, s - 1]]
+            if not bad:
+                continue
+            first, S = s, b.shape[1]
+            t = th[:, :S].copy()
+            t[:, s:] = 0
+            lg = cpu._decode(torch.from_numpy(t.astype(np.int32)), enc_c.cpu(),
+                             cpu._dec_extra(2, S), cpu._dec_big)[:, s - 1].numpy()
+            for r in bad:
+                near_tie(ties, f"{mid} ONNX greedy", f"row {r} step {s}", lg[r],
+                         int(a[r, s - 1]), int(b[r, s - 1]), tol=INT8_TIE_RTOL)
+            break
+        # beam 4: the top-k candidates of every step on both devices
+        cands = {}
+        real = oe._top_k
+        for name, e, enc in (("card", eng, enc_c), ("cpu", cpu, enc_c.cpu())):
+            cands[name] = steps = []
+
+            def rec(c, k, steps=steps, keep_all=name == "cpu"):
+                vals, idx = real(c, k)
+                steps.append((c.numpy() if keep_all else None, idx.cpu().numpy()))
+                return vals, idx
+
+            oe._top_k = rec
+            try:
+                best[name] = e._decode_tokens(enc, 2, e.prompt_ids, ENCDEC_BEAM)
+            finally:
+                oe._top_k = real
+        first_b = None
+        for i, ((_, ic), (ch, ih)) in enumerate(zip(cands["card"], cands["cpu"])):
+            if np.array_equal(ic, ih):
+                continue
+            first_b = i
+            for b, j in zip(*np.nonzero(ic != ih)):
+                row = ch[b][np.isfinite(ch[b])]
+                ratio = float(abs(ch[b, ic[b, j]] - ch[b, ih[b, j]]) / np.abs(row).max())
+                print(f"[13a] beam {ENCDEC_BEAM}: candidate {j} of row {b} differs card vs CPU "
+                      f"at step {i}: card {int(ic[b, j])}, CPU {int(ih[b, j])}; their CPU scores "
+                      f"differ by {ratio:.3e} of the largest |score| (passes below "
+                      f"{INT8_TIE_RTOL})")
+                if not ratio < INT8_TIE_RTOL:
+                    fail("a beam candidate differs card vs CPU off a near-tie")
+                ties.append((f"{mid} ONNX beam", f"row {b} step {i} rank {j}", ratio))
+            break
+        same_b = np.array_equal(best["card"], best["cpu"])
+        if first_b is None and not same_b:
+            fail("beam tokens differ card vs CPU with no divergent candidate")
+        if first is None and not np.array_equal(tc, th):
+            fail("greedy tokens differ card vs CPU with no divergent decision")
+    finally:
+        eng.max_new, cpu.max_new = saved
+    print(f"[13a] card vs CPU on B=2 x {ONNX_CHECK_SECONDS} s ({time.perf_counter() - t0:.1f} s, "
+          f"the CPU engine's load included): encoder output max|diff| {enc_err:.3e} of its "
+          f"largest magnitude (tol {ENC_INT8_RTOL}); on the card's encoder output, "
+          f"max_new {ENCDEC_CHECK_NEW}: greedy decisions equal at every step {first is None} "
+          f"(first differing step {first}; tokens per row on the CPU {generated(th, P, eos)}), "
+          f"tokens equal {np.array_equal(tc, th)}; beam "
+          f"{ENCDEC_BEAM} top-k candidates equal at every step {first_b is None} (first "
+          f"differing step {first_b}), best rows equal {same_b}")
+
+
+@contextlib.contextmanager
+def timed_op(ox, st, op_type: str, stage: str):
+    """Every call of one executor op timed by CUDA events under ``stage``
+    while the block runs."""
+    fn = ox._OPS[op_type]
+
+    def timed(node, *args):
+        with st.time(stage):
+            return fn(node, *args)
+
+    ox._OPS[op_type] = timed
+    try:
+        yield
+    finally:
+        ox._OPS[op_type] = fn
+
+
+def executor_hour(torch, dev, card: str) -> None:
+    """[13b] pyannote-sized segmentation and CAM++-scale embedding graphs
+    (tools/bench_bundles) through the port's onnx_nets on the diarization
+    hour, composed as the JAX package's executor bench composes them; card
+    against CPU; run_diarization's executor route under a stub manager."""
+    from crispy_tpu_torch.api.events import EventBus
+    from crispy_tpu_torch.engine import diar_device as dd
+    from crispy_tpu_torch.engine import diarization as td
+    from crispy_tpu_torch.models import onnx_exec as ox
+    from crispy_tpu_torch.models import onnx_nets
+    from crispy_tpu_torch.utils.synth import synth_speaker_hour
+
+    bb = bench_bundles()
+    sr = td.SAMPLE_RATE
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        seg_p = bb.make_pyannote_sized_segmentation(Path(tmp) / "segmentation-3.0.onnx", seed=0)
+        emb_p = bb.make_campplus_scale_embedding(
+            Path(tmp) / "wespeaker_en_voxceleb_CAM++.onnx", seed=1)
+        n_w = [sum(v.size for v in ox.load_onnx_graph(p).initializers.values())
+               for p in (seg_p, emb_p)]
+        seg, emb = onnx_nets.segmentation_runner(seg_p), onnx_nets.embedding_runner(emb_p)
+        seg_h = onnx_nets.segmentation_runner(seg_p, device="cpu")
+        emb_h = onnx_nets.embedding_runner(emb_p, device="cpu")
+        audio = synth_speaker_hour(DIAR_MINUTES)
+        seconds = audio.shape[0] / sr
+        windows = audio[: 2 * onnx_nets.WINDOW_SAMPLES].reshape(2, -1)
+        lc, lh = seg(windows), seg_h(windows)
+        g = np.random.default_rng(SEED + 8)
+        chunks = [speechlike(int(g.integers(sr, 4 * sr)), g, 100.0 + 20.0 * i, sr=sr)
+                  for i in range(EXEC_EMB_CHUNKS)]
+        ec, eh = emb(chunks), emb_h(chunks)
+        l_err = float(np.abs(lc - lh).max() / np.abs(lh).max())
+        e_err = float(np.abs(ec - eh).max() / np.abs(eh).max())
+        print(f"[13b] segmentation (tools/bench_bundles pyannote-sized, {n_w[0] / 1e6:.3f} M "
+              f"weights) and embedding (CAM++-scale, {n_w[1] / 1e6:.3f} M) graphs, seed 0 and "
+              f"1, on the card and the CPU ({time.perf_counter() - t0:.1f} s with the hour's "
+              f"synthesis): logits of 2 windows {lc.shape} max|diff| {l_err:.3e} of their max, "
+              f"embeddings of {EXEC_EMB_CHUNKS} speech-like chunks of 1-4 s {ec.shape} "
+              f"{e_err:.3e} of their max (tol {NET_RTOL})")
+        if not (l_err <= NET_RTOL and e_err <= NET_RTOL):
+            fail("an executor diarization net differs card vs CPU")
+
+        with CudaStages(torch) as st, timed_op(ox, st, "LSTM", "executor LSTM"):
+            nets = dict(segmentation_fn=StagedSegmentation(seg, dd, st, "segmentation graph"),
+                        embedding_fn=StagedEmbedding(emb, dd, st, "embedding graph"))
+            td.diarize(audio[: STAGED_CHECK_SECONDS * sr], max_speakers=8, merge_gap=1.0,
+                       **nets)  # warm-up: uploads, cuDNN plans
+            st.ms()
+            st.pairs.clear()
+            st.wrap(td, "nme_sc", "NME-SC")
+            walls, out, peak = timed_runs(
+                torch, lambda: td.diarize(audio, max_speakers=8, merge_gap=1.0, **nets), DIAR_RUNS)
+            stages = {k: round(v / DIAR_RUNS, 3) for k, v in st.ms().items()}
+        print(f"[13b] diarize of {seconds:.0f} s on the card through the executor's nets "
+              f"(composed as bench.py's bench_diarization_exec): {walls_line(walls, seconds)}; "
+              f"peak device memory {peak:.3f} GB; {len(out)} speaker segments [{card}]")
+        print(f"[13b] stages by CUDA events, ms a call (mean of {DIAR_RUNS}; the executor "
+              f"LSTM is inside the segmentation graph): {stages} [{card}]")
+
+        class Stub:
+            def is_downloaded(self, mid):
+                return mid in ("diarize-segmentation", "diarize-embedding")
+
+            def model_path(self, mid):
+                return seg_p if mid == "diarize-segmentation" else emb_p
+
+        bus = EventBus()
+        bus.keep_history = True
+        clip = audio[: STAGED_CHECK_SECONDS * sr]
+        with recorded(onnx_nets, "segmentation_runner", keep=lambda r: 1) as s_built, \
+                recorded(onnx_nets, "embedding_runner", keep=lambda r: 1) as e_built, \
+                recorded(td, "_diarize_device_nets", keep=lambda r: len(r[1])) as routed:
+            t0 = time.perf_counter()
+            text = td.run_diarization(clip, sr, [(0.0, 60.0, "hello"), (60.0, 150.0, "world")],
+                                      model_manager=Stub(), bus=bus)
+            wall = time.perf_counter() - t0
+        falls = [p for e, p in bus.history if e == "diarization-fallback"]
+        print(f"[13b] run_diarization of {STAGED_CHECK_SECONDS} s under a stub manager holding "
+              f"both .onnx files: executor runners built {len(s_built)} + {len(e_built)}, "
+              f"one-upload route with {routed} chunks, fallback events {falls}, "
+              f"{len(text)} characters, wall {wall:.3f} s (runner loads included) [{card}]")
+        if len(s_built) != 1 or len(e_built) != 1 or not routed or falls:
+            fail("run_diarization did not take the executor route")
+
+
+class DrillProcess:
+    """[13c]'s process: tests/test_torch_hour_scale.hour_drill on the card in
+    a process of its own, started at the smoke's start and told to run at
+    phase 13. A process started by vfork and exec reports its parent's peak
+    RSS as its own on the card's machine (ru_maxrss and VmHWM alike), and by
+    phase 13 the smoke holds far more than the drill's bound; started while
+    the smoke is still small, the process reads the drill's own peak. It
+    exits without running if the smoke ends first (its stdin closes)."""
+
+    def __init__(self):
+        self.tmp = tempfile.mkdtemp()
+        env = dict(os.environ, CRISPY_DATA_DIR=str(Path(self.tmp) / "Crispy"))
+        code = ("import json, sys\n"
+                "from pathlib import Path\n"
+                "if sys.stdin.readline().strip() != 'go':\n"
+                "    sys.exit(0)\n"
+                f"sys.path[:0] = [{str(ROOT)!r}, {str(ROOT / 'tests')!r}]\n"
+                "import test_torch_hour_scale as h\n"
+                "at_go = h.peak_rss_gb()\n"
+                f"res = h.hour_drill(Path({self.tmp!r}), 'cuda')\n"
+                "print(json.dumps(dict(res, peak_rss_at_start_gb=at_go)))\n")
+        self.proc = subprocess.Popen([sys.executable, "-c", code], env=env, text=True,
+                                     stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE)
+        atexit.register(self.close)
+
+    def run(self, card: str) -> None:
+        t0 = time.perf_counter()
+        out, err = self.proc.communicate("go\n", timeout=DRILL_TIMEOUT)
+        wall = time.perf_counter() - t0
+        self.close()
+        if self.proc.returncode != 0:
+            print(out[-4000:], err[-4000:], sep="\n")
+            fail(f"the hour drill failed on the card (exit {self.proc.returncode})")
+        res = json.loads(out.strip().splitlines()[-1])
+        print(f"[13c] hour drill (tests/test_torch_hour_scale.py: 60 min two-speaker WAV, "
+              f"OnnxEncDecEngine over make_canary_bundle, max_new=8, diarization on, cancel "
+              f"past 10%, resume, sidecar) on the card: {res}; process wall {wall:.1f} s "
+              f"[{card}]")
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def encdec_layouts(torch, rng) -> None:
+    """[13d] the enc-dec layouts of the JAX package's engine tests through
+    load_engine, card against CPU: equal texts and word segments."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import test_onnx_engines as layouts
+
+    from crispy_tpu_torch.engine import transcription as tr
+    from crispy_tpu_torch.models.registry import ModelManager
+
+    x = np.stack([speechlike(3 * 16000, rng, 100.0 + 50.0 * b, sr=16000) for b in range(4)])
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        mm = ModelManager(models_dir=Path(tmp) / "Models")
+        for mid, make in (("canary-180m-flash", layouts.make_canary_bundle),
+                          ("moonshine-base", layouts.make_moonshine_bundle),
+                          ("canary-1b-v2", layouts.make_merged_decoder_bundle),
+                          ("cohere-int8", layouts.make_canary_bundle)):
+            mm.model_path(mid).mkdir(parents=True)
+            make(mm.model_path(mid))
+            card_eng = tr.load_engine(mid, mm)  # default device: the card
+            cpu_eng = tr.load_engine(mid, mm, device="cpu")
+            got, want = card_eng.transcribe_batch(x), cpu_eng.transcribe_batch(x)
+            segs = (card_eng.transcribe_batch_with_timestamps(x, [0.0] * 4),
+                    cpu_eng.transcribe_batch_with_timestamps(x, [0.0] * 4))
+            results[mid] = (type(card_eng).__name__, card_eng.kind, got == want,
+                            segs[0] == segs[1])
+            if got != want or segs[0] != segs[1] or card_eng.device.type != "cuda":
+                fail(f"{mid} enc-dec layout on {card_eng.device}: texts equal {got == want}, "
+                     f"word segments equal {segs[0] == segs[1]}")
+    print(f"[13d] enc-dec layouts through load_engine, card vs CPU (engine, frontend, texts "
+          f"equal, word segments equal): {results}")
+
+
+def encdec_phase(torch, dev, card: str, drill: DrillProcess) -> None:
+    from crispy_tpu_torch.models.registry import ModelManager
+
+    t0 = time.perf_counter()
+    ties: list = []
+    erng = np.random.default_rng(SEED + 9)
+    mid = "canary-180m-flash"
+    with tempfile.TemporaryDirectory() as tmp:
+        with tempfile.TemporaryDirectory() as data:
+            os.environ["CRISPY_DATA_DIR"] = data  # sidecars stay out of HOME
+            mm = ModelManager(models_dir=Path(tmp) / "Models")
+            with torch.no_grad():
+                eng = encdec_fullwidth(torch, mm, erng, card, mid)
+                t1 = time.perf_counter()
+                encdec_card_vs_cpu(torch, mm, erng, mid, eng, ties)
+                del eng
+                t2 = time.perf_counter()
+                executor_hour(torch, dev, card)
+            t3 = time.perf_counter()
+            drill.run(card)
+            t4 = time.perf_counter()
+            encdec_layouts(torch, erng)
+    print(f"[13] decisions that differ card vs CPU at a near-tie: {len(ties)} {ties}; 13a "
+          f"(RTF), 13a (card vs CPU), 13b, 13c, 13d took {t1 - t0:.1f}, {t2 - t1:.1f}, "
+          f"{t3 - t2:.1f}, {t4 - t3:.1f}, {time.perf_counter() - t4:.1f} s")
+
+
 def main() -> int:
     # The run uses one card: show torch only the first visible one, so the
     # count it reports is the count it used.
@@ -2333,6 +2917,7 @@ def main() -> int:
     if count != 1:
         fail(f"expected one visible card, torch sees {count}")
     sys.path.insert(0, str(ROOT))
+    drill = DrillProcess()  # phase 13c's process, started while the smoke is small
     from crispy_tpu_torch import _build
     from crispy_tpu_torch.device import resolve_device
     from crispy_tpu_torch.dsp.rnnoise import frontend_kernels as fk
@@ -2556,6 +3141,11 @@ def main() -> int:
         t0 = time.perf_counter()
         onnx_phase(torch, card, e2e_wav)
         print(f"[12] phase 12 took {time.perf_counter() - t0:.1f} s")
+
+    # --- 13: the ONNX enc-dec bundles and the executor's diarization nets ------
+    t0 = time.perf_counter()
+    encdec_phase(torch, dev, card, drill)
+    print(f"[13] phase 13 took {time.perf_counter() - t0:.1f} s")
 
     for r in rows:
         r["launches"] = launches[r["name"]]

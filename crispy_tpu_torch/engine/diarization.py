@@ -16,10 +16,11 @@ reference pipeline (src-tauri/src/managers/diarization.rs):
 The decode, merge and chunk helpers are the JAX package's host NumPy. The
 nets are pluggable callables: the built-in stand-ins are an energy VAD and
 log-mel statistics embeddings; ``models/segmentation`` (PyanNet) and
-``models/campplus`` (CAM++) are the real architectures. From two minutes of
-audio on, ``diarize`` uploads the recording once as int16 and forms the
-windows and chunks on the device (``diar_device``, or the nets'
-``from_device``). A failure on the device raises: nothing is redone on
+``models/campplus`` (CAM++) are the real architectures, and
+``models/onnx_nets`` runs a downloaded net's .onnx graph through the ONNX
+executor. From two minutes of audio on, ``diarize`` uploads the recording
+once as int16 and forms the windows and chunks on the device
+(``diar_device``, or the nets' ``from_device``). A failure on the device raises: nothing is redone on
 the host.
 """
 
@@ -593,13 +594,14 @@ def diarize(
     return merge_consecutive_segments(result, merge_gap)
 
 
-def onnx_runner(net: str, path):
+def onnx_runner(net: str, path, device=None):
     """The reference's first route for a downloaded net: its .onnx run as a
-    graph by the ONNX executor, whose diarization route (``onnx_nets``) the
-    port does not have yet."""
-    raise NotImplementedError(
-        f"{net} net {path}: the ONNX executor's diarization route is not ported yet "
-        "(ROADMAP queue 1, item 10b)")
+    graph by the ONNX executor (``models.onnx_nets``) on ``device``."""
+    from ..models import onnx_nets
+
+    if net == "segmentation":
+        return onnx_nets.segmentation_runner(path, device=device)
+    return onnx_nets.embedding_runner(path, device=device)
 
 
 def run_diarization(
@@ -615,8 +617,9 @@ def run_diarization(
     """Transcription hand-off: diarize + interleave with word segments.
 
     Network selection per net, best first:
-      1. the downloaded .onnx through the ONNX executor (``onnx_runner``;
-         not ported, so it raises);
+      1. the downloaded .onnx through the ONNX executor (``onnx_runner``:
+         pyannote segmentation-3.0 + WeSpeaker CAM++, the reference's pair
+         — diarization.rs:40-75,133-134);
       2. the native port (``models.segmentation`` / ``models.campplus``
          ``from_onnx``) over the same file;
       3. the built-in stand-in (energy VAD / log-mel stats) — never chosen
@@ -629,7 +632,7 @@ def run_diarization(
             return None
         path = model_manager.model_path(model_id)
         try:
-            return onnx_runner(net, path)
+            return onnx_runner(net, path, device=dev)
         except Exception as e1:
             try:
                 return native(path, device=dev)

@@ -1,15 +1,14 @@
 """ASR engines that run the catalog's ONNX bundles through the port's ONNX
 executor (``models/onnx_exec``), on the card.
 
-The port of ``crispy_tpu/engine/onnx_engines.py``'s CTC and TDT engines.
-The reference loads these artifacts through transcribe-rs 0.3 / ONNX
-Runtime (managers/transcription.rs:119-172: ParakeetModel, GigaAMModel,
-SenseVoiceModel, CohereModel — int8 variants picked when the filename
-contains "int8"). Here the same .onnx graphs run eagerly on the engine's
-device, inputs/outputs wired by introspection (names vary across
-exporters), and the decode loops (CTC collapse, TDT greedy) batch the whole
-30 s chunk dimension. The encoder-decoder engine (canary, moonshine-ONNX,
-cohere's enc-dec layout) is not ported yet (ROADMAP queue 1, item 10b).
+The port of ``crispy_tpu/engine/onnx_engines.py``. The reference loads
+these artifacts through transcribe-rs 0.3 / ONNX Runtime
+(managers/transcription.rs:119-172: ParakeetModel, GigaAMModel,
+SenseVoiceModel, CanaryModel, CohereModel, MoonshineModel — int8 variants
+picked when the filename contains "int8"). Here the same .onnx graphs run
+eagerly on the engine's device, inputs/outputs wired by introspection
+(names vary across exporters), and the decode loops (CTC collapse, TDT
+greedy, AR greedy and beam) batch the whole 30 s chunk dimension.
 """
 
 from __future__ import annotations
@@ -26,6 +25,7 @@ from ..device import resolve_device
 from ..models.onnx_exec import _TORCH_OF_ONNX, OnnxRunner
 from ..models.onnx_import import _DTYPES
 from ..models.parakeet import TDT_SYNC_EVERY
+from ..models.whisper.model import _top_k  # ties in index order, as lax.top_k
 from .onnx_contracts import classify_inputs
 
 _SPECIAL_RE = re.compile(r"^<\|.*\|>$|^<[a-z_/]+>$|^\[.*\]$")
@@ -478,9 +478,9 @@ class OnnxCtcEngine:
 
 def engine_from_onnx_dir(model_id: str, path, device=None, **kwargs):
     """Dispatch an ONNX bundle to the right engine by its file inventory:
-    a *joint* decoder → transducer/TDT; encoder+decoder pair → AR enc-dec
-    (not ported yet); a single graph → CTC. This is how unknown-architecture
-    bundles (cohere, transcribe-rs's external crate) are pinned at load."""
+    a *joint* decoder → transducer/TDT; encoder+decoder pair → AR enc-dec;
+    a single graph → CTC. This is how unknown-architecture bundles (cohere,
+    transcribe-rs's external crate) are pinned at load."""
     path = Path(path)
     joint = find_onnx(path, "joint")
     if joint is not None:
@@ -489,9 +489,7 @@ def engine_from_onnx_dir(model_id: str, path, device=None, **kwargs):
     dec = (find_onnx(path, "uncached") or find_onnx(path, "merged")
            or find_onnx(path, "decoder", "decode", exclude=("cached",)))
     if enc is not None and dec is not None and enc != dec:
-        raise NotImplementedError(
-            f"{model_id}: an encoder-decoder ONNX bundle needs the enc-dec engine, which "
-            "is not ported yet (ROADMAP queue 1, item 10b)")
+        return OnnxEncDecEngine(path, model_id, device=device, **kwargs)
     if find_onnx(path) is not None:
         return OnnxCtcEngine(path, model_id, device=device, **kwargs)
     raise FileNotFoundError(f"no .onnx files in {path}")
@@ -735,5 +733,396 @@ class OnnxTdtEngine:
         out = []
         for seq, tms, off in zip(tokens, times, offsets):
             words = group_word_segments(seq, tms, self.pieces, dur)
+            out.append([(s + off, e + off, w) for s, e, w in words])
+        return out
+
+
+# ---------------------------------------------------------------------------
+# Encoder-decoder engine (Canary, Cohere, Moonshine-ONNX)
+# ---------------------------------------------------------------------------
+
+class OnnxEncDecEngine:
+    """encoder .onnx + AR decoder .onnx, greedy or beam decode, on ``device``
+    (default: the card).
+
+    The decoder is driven full-prefix at a fixed padded length per bucket
+    (causal decoders ignore positions after the read index). KV-cache graph
+    variants (HF optimum merged exports) run through their uncached branch
+    via the executor's static If, with zero-length past tensors.
+
+    The JAX package runs one ``lax.while_loop`` per length bucket (short
+    buckets first, escalating toward the full padded length only for rows
+    that have not emitted EOS). Here a bucket is a Python loop of device
+    steps: the step index is a host int, so every slice is static, and
+    ``done`` stays on the device. The host reads whether every row is done
+    once every ``SYNC_EVERY`` steps and at each bucket's end. A step taken
+    after every row is done changes nothing (the loop's condition, applied
+    on the device), so the tokens do not depend on how often the host reads.
+    """
+
+    name = "onnx-encdec"
+    # generated-token lengths of the decode buckets (the full max_new
+    # length is always appended): silence exits in the 48 bucket, typical
+    # 30 s speech (~50-120 tokens) in the 128 bucket
+    BUCKET_SIZES = (48, 128)
+    SYNC_EVERY = 8  # decode steps between the host's reads of ``done``
+
+    def __init__(self, model_dir, model_id: str = "onnx-encdec",
+                 max_new: int = 224, prompt_tokens: Optional[List[str]] = None,
+                 eos_tokens: Sequence[str] = ("</s>", "<|endoftext|>", "<eos>"),
+                 device=None, beam: int = 1):
+        self.name = model_id
+        self.max_new = max_new
+        self.device = resolve_device(device)
+        self.beam = max(1, int(beam))
+        model_dir = Path(model_dir)
+        enc_p = find_onnx(model_dir, "encoder", "encode", exclude=("preprocess",))
+        # prefer an uncached/merged decoder export over a cached-only one
+        dec_p = (find_onnx(model_dir, "uncached", exclude=("joint",))
+                 or find_onnx(model_dir, "merged", exclude=("joint",))
+                 or find_onnx(model_dir, "decoder", "decode", exclude=("joint", "cached")))
+        if enc_p is None or dec_p is None:
+            raise FileNotFoundError(f"need encoder+decoder .onnx in {model_dir}")
+        self.enc = OnnxRunner.load(enc_p).validate()
+        self.dec = OnnxRunner.load(dec_p).validate()
+        self.decode_ids, self.vocab_size = load_tokenizer(model_dir)
+        self.vocab_list = load_vocab_file(model_dir)
+        self.pieces = load_pieces(model_dir)
+
+        ecls = classify_inputs(self.enc)
+        self.enc_feats_name, _, efs = ecls["float"][0]
+        self.frontend, self.kind = _resolve_frontend(model_dir, efs, self.device)
+        self.enc_ints = ecls["int"]
+        self.enc_roles = ecls["roles"]
+
+        dcls = classify_inputs(self.dec)
+        self.dec_roles = dcls["roles"]
+        # token-ids input: exact contract name first (input_ids /
+        # decoder_input_ids), then heuristic tokens/targets role
+        from .onnx_contracts import input_role
+
+        self.dec_tok = None
+        for want_exact in (True, False):
+            for name, et, shape in dcls["int"]:
+                role, prov = input_role(name, et)
+                if role in ("tokens", "targets") and (prov == "exact") == want_exact:
+                    self.dec_tok = (name, et, shape)
+                    break
+            if self.dec_tok is not None:
+                break
+        if self.dec_tok is None and dcls["int"]:
+            self.dec_tok = dcls["int"][0]
+        if self.dec_tok is None:
+            raise ValueError("decoder graph has no token-ids input")
+        self.dec_ints = [i for i in dcls["int"] if i[0] != self.dec_tok[0]]
+        for name, _et, _sh in self.dec_ints:
+            if self.dec_roles.get(name) not in ("length", "target_length"):
+                raise ValueError(
+                    f"cannot bind int input '{name}' of the decoder graph "
+                    f"in {model_dir}: not a recognized length input — "
+                    "extend onnx_contracts with the exporter's contract")
+        self.dec_enc = dcls["float"][0] if dcls["float"] else None
+        self.dec_states = dcls["state"]
+        self.dec_bools = dcls["bool"]
+        # branch-select flags stay static numpy (the executor resolves If
+        # conditions on the host): False takes the uncached branch
+        self._bool_consts = {nm: np.array(False) for nm, _sh in self.dec_bools}
+
+        self.prompt_ids = self._resolve_prompt(prompt_tokens)
+        self.eos_id = self._resolve_eos(eos_tokens)
+        self._fixed_prompt = prompt_tokens is not None
+        self._enc_big = self.enc.lift_big_params(self.device)
+        self._dec_big = self.dec.lift_big_params(self.device)
+
+    def _encode(self, feats, extra, big):
+        inputs = {self.enc_feats_name: feats}
+        inputs.update(extra)
+        v = _first_rank3(self.enc, self.enc(big, **inputs))
+        if v is None:
+            raise ValueError("no rank-3 encoder output")
+        return v
+
+    def _decode(self, tokens, enc_out, extra, big):
+        """One full-prefix decoder call: tokens [R, S] → logits [R, S, V]:
+        the first rank-3 output at least vocab-wide, else the first rank-3."""
+        name, et, _shape = self.dec_tok
+        if isinstance(tokens, torch.Tensor):
+            tokens = tokens.to(_TORCH_OF_ONNX.get(et or 1, torch.float32))
+        else:
+            tokens = np.asarray(tokens).astype(_np_dtype(et))
+        inputs = {name: tokens}
+        if self.dec_enc is not None:
+            inputs[self.dec_enc[0]] = enc_out
+        inputs.update(self._bool_consts)
+        inputs.update(extra)
+        out = self.dec(big, **inputs)
+        for oname in self.dec.output_names:
+            v = out[oname]
+            if getattr(v, "ndim", 0) == 3 and v.shape[-1] >= (self.vocab_size or 2):
+                return v
+        v = _first_rank3(self.dec, out)
+        if v is None:
+            raise ValueError("no logits output")
+        return v
+
+    # -- token id resolution --------------------------------------------------
+    def _find_token(self, names: Sequence[str]) -> Optional[int]:
+        if not self.vocab_list:
+            return None
+        for n in names:
+            if n in self.vocab_list:
+                return self.vocab_list.index(n)
+        return None
+
+    def _resolve_prompt(self, prompt_tokens: Optional[List[str]]) -> List[int]:
+        if prompt_tokens:
+            ids = [self._find_token([t]) for t in prompt_tokens]
+            ids = [i for i in ids if i is not None]
+            if ids:
+                return ids
+        # canary-style task prompt if present in the vocab
+        ids = []
+        for group in (["<|startoftranscript|>"], ["<|en|>"], ["<|transcribe|>"],
+                      ["<|en|>"], ["<|pnc|>", "<|nopnc|>"]):
+            i = self._find_token(group)
+            if i is not None:
+                ids.append(i)
+        if ids:
+            return ids
+        i = self._find_token(["<s>", "<bos>", "<|startoftranscript|>"])
+        return [i if i is not None else 1]
+
+    def _resolve_eos(self, eos_tokens) -> int:
+        i = self._find_token(list(eos_tokens) + ["<|endoftranscript|>"])
+        if i is not None:
+            return i
+        return 2  # SPM convention
+
+    # -- state/cache zero inputs ----------------------------------------------
+    def _zero_states(self, B: int) -> Dict[str, np.ndarray]:
+        extra: Dict[str, np.ndarray] = {}
+        for name, et, shape in self.dec_states:
+            dims = []
+            for i, d in enumerate(shape or [1, B, 0, 64]):
+                if d:
+                    dims.append(d)
+                elif i == 0:
+                    dims.append(B)
+                else:
+                    dims.append(0)  # past sequence length: empty cache
+            extra[name] = np.zeros(dims, _np_dtype(et))
+        return extra
+
+    def _dec_extra(self, R: int, S: int) -> Dict[str, np.ndarray]:
+        """The decoder's static inputs at padded length S: zero-length past
+        tensors and the length inputs."""
+        extra = self._zero_states(R)
+        for name, et, _shape in self.dec_ints:
+            extra[name] = np.full(R, S, _np_dtype(et))
+        return extra
+
+    def prompt_for_language(self, language: str) -> List[int]:
+        """Swap <|lang|> slots in the canary-style prompt when the vocab has
+        the requested language token (source AND target positions)."""
+        if self._fixed_prompt or language == "en" or not self.vocab_list:
+            return self.prompt_ids
+        en = self._find_token(["<|en|>"])
+        lang = self._find_token([f"<|{language}|>"])
+        if en is None or lang is None:
+            return self.prompt_ids
+        return [lang if t == en else t for t in self.prompt_ids]
+
+    def encoder_output(self, chunks_16k) -> torch.Tensor:
+        """The encoder's rank-3 output for a chunk batch, on the device."""
+        a = _chunks_2d(chunks_16k, self.device)
+        feats = self.frontend(a)
+        n_frames = _frame_count(self.kind, a.shape[1])
+        extra = _length_extra(self.enc_ints, self.enc_roles, a.shape[0], n_frames,
+                              f"{self.name} encoder")
+        return self._encode(feats, extra, self._enc_big)
+
+    def _decode_rows(self, chunks_16k, language: str = "en") -> Tuple[List[List[int]], float]:
+        """Encode + decode a chunk batch → (per-row generated token ids up
+        to EOS, chunk duration in seconds)."""
+        a = _chunks_2d(chunks_16k, self.device)
+        B = a.shape[0]
+        dur = a.shape[1] / 16000.0
+        enc_out = self.encoder_output(a)
+        prompt_ids = self.prompt_for_language(language)
+        tokens = self._decode_tokens(enc_out, B, prompt_ids, self.beam)
+        P = len(prompt_ids)
+        seqs = []
+        for b in range(B):
+            seq = []
+            for tkn in tokens[b, P:]:
+                if int(tkn) == self.eos_id:
+                    break
+                seq.append(int(tkn))
+            seqs.append(seq)
+        return seqs, dur
+
+    def transcribe_batch(self, chunks_16k, language: str = "en") -> List[str]:
+        seqs, _dur = self._decode_rows(chunks_16k, language)
+        return [self.decode_ids(seq) for seq in seqs]
+
+    def _decode_tokens(self, enc_out, B: int, prompt_ids, beam: int = 1) -> np.ndarray:
+        if beam == 1:
+            return self._greedy_device(enc_out, B, prompt_ids)
+        return self._beam_device(enc_out, B, prompt_ids, beam)
+
+    def _buckets(self, P: int) -> Tuple[int, List[int]]:
+        S_full = P + self.max_new
+        return S_full, sorted({min(P + b, S_full) for b in self.BUCKET_SIZES} | {S_full})
+
+    def _prompted(self, R: int, S_full: int, prompt_ids) -> torch.Tensor:
+        tokens = torch.zeros((R, S_full), dtype=torch.int32, device=self.device)
+        tokens[:, :len(prompt_ids)] = torch.tensor(prompt_ids, dtype=torch.int32)
+        return tokens
+
+    def _all_done(self, done: torch.Tensor, k: int) -> bool:
+        """The host's read of ``done`` before the k-th step of a bucket (a
+        sync), once every SYNC_EVERY steps."""
+        return k > 0 and k % self.SYNC_EVERY == 0 and bool(done.all())
+
+    def _guard(self, toks, done, s: int, P: int):
+        """The degenerate-loop guard: 8 identical trailing tokens at s - P
+        >= 8 cut the row at s - 6 (keeping one repeat)."""
+        if s - P < 8:
+            return toks, done
+        win = toks[:, s - 7: s + 1]
+        stuck = (win == win[:, -1:]).all(dim=1) & ~done
+        toks[:, s - 6] = torch.where(stuck, self.eos_id, toks[:, s - 6])
+        return toks, done | stuck
+
+    # -- greedy: a bucketed loop of device steps --------------------------------
+    def _greedy_bucket(self, toks, enc_out, extra, s0: int, done, P: int):
+        """Greedy steps s0..S-1 over toks [R, S] (the JAX package's
+        ``_loop_fn``): the logits at s-1 of the full-prefix decode, argmax
+        (first maximal index), finished rows forced to eos. Returns (toks,
+        done), both on the device."""
+        eos = self.eos_id
+        for s in range(s0, toks.shape[1]):
+            if self._all_done(done, s - s0):
+                break
+            live = ~done.all()
+            lg = self._decode(toks, enc_out, extra, self._dec_big)[:, s - 1]
+            nxt = torch.where(done, eos, lg.argmax(dim=-1).to(toks.dtype))
+            toks[:, s] = torch.where(live, nxt, toks[:, s])
+            done = done | (nxt == eos)
+            toks, done = self._guard(toks, done, s, P)
+        return toks, done
+
+    def _greedy_device(self, enc_out, B: int, prompt_ids) -> np.ndarray:
+        P = len(prompt_ids)
+        S_full, buckets = self._buckets(P)
+        tokens = self._prompted(B, S_full, prompt_ids)
+        done = torch.zeros(B, dtype=torch.bool, device=self.device)
+        s0 = P
+        for S in buckets:
+            toks, done = self._greedy_bucket(tokens[:, :S].clone(), enc_out,
+                                             self._dec_extra(B, S), s0, done, P)
+            tokens[:, :S] = toks
+            if bool(done.all()):  # the host's read at the bucket's end
+                break
+            s0 = S  # escalate: continue the unfinished rows at full length
+        return tokens.cpu().numpy().astype(np.int64)
+
+    # -- beam search: a bucketed loop of device steps ---------------------------
+    def _beam_bucket(self, toks, enc_rep, extra, s0: int, done, cum, P: int, beam: int):
+        """Beam steps s0..S-1 over toks [B*beam, S] (the JAX package's
+        ``_beam_loop_fn``). Beams are batch rows; the decoder is stateless
+        full-prefix, so reordering beams is a row gather of the prefixes.
+        Returns (toks, done, cum [B, beam]), on the device."""
+        R, S = toks.shape
+        B = R // beam
+        eos = self.eos_id
+        frozen = None
+        for s in range(s0, S):
+            if self._all_done(done, s - s0):
+                break
+            live = ~done.all()
+            lg = self._decode(toks, enc_rep, extra, self._dec_big)[:, s - 1]
+            V = lg.shape[-1]
+            mx = lg.max(dim=-1, keepdim=True).values
+            lp = lg - mx - torch.log(torch.exp(lg - mx).sum(dim=-1, keepdim=True))
+            if frozen is None:
+                # frozen hypotheses: only the eos continuation survives, at
+                # unchanged cumulative score
+                frozen = torch.full((V,), float("-inf"), dtype=lp.dtype, device=lp.device)
+                if 0 <= eos < V:
+                    frozen[eos] = 0.0
+            lp = torch.where(done[:, None], frozen, lp)
+            cand = cum[..., None] + lp.reshape(B, beam, V)
+            if s == P:  # first step: all beams identical → expand beam 0 only
+                cand[:, 1:] = float("-inf")
+            vals, idx = _top_k(cand.reshape(B, beam * V), beam)
+            parent = idx // V
+            tok = (idx % V).to(toks.dtype).reshape(R)
+            new = toks.reshape(B, beam, S).gather(
+                1, parent[..., None].expand(B, beam, S)).reshape(R, S)
+            ndone = done.reshape(B, beam).gather(1, parent).reshape(R)
+            new[:, s] = tok
+            new, ndone = self._guard(new, ndone | (tok == eos), s, P)
+            toks = torch.where(live, new, toks)
+            done = torch.where(live, ndone, done)
+            cum = torch.where(live, vals, cum)
+        return toks, done, cum
+
+    def _beam_device(self, enc_out, B: int, prompt_ids, beam: int) -> np.ndarray:
+        """Beam decode of [B*beam] device rows → best tokens [B, S], with a
+        length-normalised final ranking on the host; bucketed like greedy."""
+        P = len(prompt_ids)
+        S_full, buckets = self._buckets(P)
+        R = B * beam
+        enc_rep = enc_out.repeat_interleave(beam, dim=0)
+        tokens = self._prompted(R, S_full, prompt_ids)
+        done = torch.zeros(R, dtype=torch.bool, device=self.device)
+        cum = torch.zeros((B, beam), dtype=torch.float32, device=self.device)
+        s0 = P
+        for S in buckets:
+            toks, done, cum = self._beam_bucket(tokens[:, :S].clone(), enc_rep,
+                                                self._dec_extra(R, S), s0, done, cum, P, beam)
+            tokens[:, :S] = toks
+            if bool(done.all()):  # the host's read at the bucket's end
+                break
+            s0 = S
+        # length-normalised ranking over finished beams (whisper convention)
+        toks3 = tokens.cpu().numpy().astype(np.int64).reshape(B, beam, S_full)
+        gen = toks3[:, :, P:]
+        has_eos = (gen == self.eos_id).any(axis=-1)
+        first_eos = (gen == self.eos_id).argmax(axis=-1)
+        lengths = np.where(has_eos, first_eos, self.max_new)
+        norm = cum.cpu().numpy().astype(np.float64) / np.maximum(lengths + 1, 1)
+        best = norm.argmax(axis=1)
+        return toks3[np.arange(B), best]
+
+    def transcribe_with_timestamps(self, chunk_16k, offset_seconds,
+                                   language: str = "en"):
+        return self.transcribe_batch_with_timestamps(
+            _chunks_2d(chunk_16k, self.device), [offset_seconds], language)[0]
+
+    def transcribe_batch_with_timestamps(self, chunks, offsets,
+                                         language: str = "en"):
+        """Word segments from one batched decode. An AR decoder without
+        cross-attention outputs has no frame alignment, so token times come
+        from speech-energy-mass quantiles over the chunk's active span
+        (``_energy_quantile_times``), as diarization's word-midpoint lookup
+        needs (managers/transcription.rs:196-249)."""
+        a = _chunks_2d(chunks, self.device)
+        seqs, dur = self._decode_rows(a, language)
+        rows = a.cpu().numpy()
+        out = []
+        for row, seq, off in zip(rows, seqs, offsets):
+            if not seq:
+                out.append([])
+                continue
+            t0, t1 = _active_span(row, dur)
+            words = []
+            if self.pieces is not None:
+                times = _energy_quantile_times(row, dur, len(seq))
+                words = group_word_segments(seq, times, self.pieces, t1)
+            if not words:
+                text = self.decode_ids(seq)
+                words = [(t0, t1, text)] if text.strip() else []
             out.append([(s + off, e + off, w) for s, e, w in words])
         return out

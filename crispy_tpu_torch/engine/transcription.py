@@ -15,11 +15,10 @@ not at 16 kHz is resampled there (``resample_poly(device_out=True)``) and
 its chunk batches never leave it. The engines: whisper, and the native
 families (parakeet TDT and CTC, gigaam, canary, moonshine, sensevoice) from
 prepared bundles, and the catalog's ONNX bundles (parakeet TDT, gigaam and
-sensevoice CTC, cohere where its bundle is one of those layouts) through
-the ONNX executor (``engine/onnx_engines``); the ONNX enc-dec layouts
-(canary, moonshine, cohere's) wait for ROADMAP queue 1, item 10b. With
-diarization on, the chunks are decoded with timestamps and the speaker
-segments of ``engine/diarization`` tag the text.
+sensevoice CTC, canary, moonshine and cohere's encoder-decoder pairs)
+through the ONNX executor (``engine/onnx_engines``). With diarization on,
+the chunks are decoded with timestamps and the speaker segments of
+``engine/diarization`` tag the text.
 """
 
 from __future__ import annotations
@@ -204,12 +203,6 @@ def _on_device(chunks, device: torch.device) -> torch.Tensor:
     return torch.atleast_2d(chunks).to(device, torch.float32)
 
 
-def _onnx_only(model_id: str, what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{model_id}: {what} runs through the ONNX encoder-decoder engine, which is not "
-        "ported yet (ROADMAP queue 1, item 10b)")
-
-
 def _has_hf_checkpoint(path: Path) -> bool:
     return (path / "model.safetensors").exists() or (path / "pytorch_model.bin").exists()
 
@@ -221,10 +214,8 @@ def load_engine(model_id: str, model_manager: ModelManager, device=None) -> Engi
     package's flat layout, ``config.json``, the tokenizer) and, for
     moonshine and parakeet CTC, from HF checkpoints; else the catalog's
     ONNX bundle through the executor, with the JAX package's engines and
-    arguments: parakeet TDT, gigaam and sensevoice (blank 0) CTC, cohere by
-    its file inventory. Canary and moonshine without ``params.npz`` (and
-    cohere's enc-dec layout) need the ONNX encoder-decoder engine, which is
-    not ported: they raise ``NotImplementedError``."""
+    arguments: parakeet TDT, gigaam and sensevoice (blank 0) CTC, canary's
+    encoder-decoder pair, and moonshine and cohere by their file inventory."""
     info = model_manager.find(model_id)
     if info is None:
         raise ValueError(f"unknown model: {model_id}")
@@ -255,12 +246,16 @@ def load_engine(model_id: str, model_manager: ModelManager, device=None) -> Engi
         return _moonshine(model_id, MoonshineModel.from_hf(path, name=model_id, device=dev))
     if kind == "parakeet" and _has_hf_checkpoint(path):
         return _parakeet_ctc_engine(model_id, path, dev)
-    if kind in ("canary", "moonshine"):
-        raise _onnx_only(model_id, "a bundle without params.npz")
     # the catalog bundle is the ONNX export (transcribe-rs ParakeetModel,
-    # GigaAMModel, SenseVoiceModel; managers/transcription.rs:141-156)
-    from .onnx_engines import OnnxCtcEngine, OnnxTdtEngine
+    # GigaAMModel, SenseVoiceModel, CanaryModel, MoonshineModel;
+    # managers/transcription.rs:141-160)
+    from .onnx_engines import (OnnxCtcEngine, OnnxEncDecEngine, OnnxTdtEngine,
+                               engine_from_onnx_dir)
 
+    if kind == "canary":
+        return OnnxEncDecEngine(path, model_id, device=dev)
+    if kind == "moonshine":
+        return engine_from_onnx_dir(model_id, path, device=dev)
     if kind == "parakeet":
         return OnnxTdtEngine(path, model_id, device=dev)
     return OnnxCtcEngine(path, model_id, blank_id=0 if kind == "sensevoice" else None,

@@ -10,8 +10,7 @@ sensevoice, plus parakeet CTC and moonshine from HF checkpoints. Then
 run_transcription of a 35 s 48 kHz WAV through the Parakeet engine (two
 chunks, the tail zero-padded, resampled on the device in the port) against
 the JAX package's. A bundle without params.npz is the catalog's ONNX
-export: canary and moonshine raise NotImplementedError naming ROADMAP queue
-1, item 10b; the others reach the ONNX executor (tests/test_torch_onnx_*.py).
+export and reaches the ONNX executor's engines (tests/test_torch_onnx_*.py).
 """
 
 import json
@@ -175,11 +174,12 @@ def test_run_transcription_text_equals_jax(tmp_path, data_root):
         ["resample", "transcribe-batch"]
 
 
-# what an empty encoder-model.onnx without params.npz gives: canary and
-# moonshine need the ONNX enc-dec engine (not ported); the others reach the
-# executor, which refuses the file (parakeet: no decoder_joint beside it)
-ONNX_ONLY = {"canary-180m-flash": (NotImplementedError, "queue 1, item 10b"),
-             "moonshine-base": (NotImplementedError, "queue 1, item 10b"),
+# what an empty encoder-model.onnx without params.npz gives, as in the JAX
+# package: canary reaches the ONNX enc-dec engine (no decoder beside the
+# encoder), moonshine's file inventory is then one graph (CTC); the others
+# reach the executor, which refuses the file (parakeet: no decoder_joint)
+ONNX_ONLY = {"canary-180m-flash": (FileNotFoundError, "need encoder\\+decoder"),
+             "moonshine-base": (ValueError, "no graph"),
              "parakeet-tdt-0.6b-v3": (FileNotFoundError, "decoder_joint"),
              "gigaam-v3-e2e-ctc": (ValueError, "no graph"),
              "sense-voice-int8": (ValueError, "no graph"),

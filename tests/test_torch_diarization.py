@@ -438,22 +438,19 @@ class StubManager:
 
 @needs_jax
 def test_run_diarization_with_downloaded_nets_matches_jax(tmp_path, monkeypatch):
-    """The test_diarization_onnx files: the executor route is not ported
-    (raises, naming item 10b), and the native loaders cannot map these
-    graphs, so both nets fall back to the stand-ins with an event each. The
-    JAX side's executor runners are made to raise the same error, so both
-    packages take the same route."""
-    from crispy_tpu.models import onnx_nets
+    """The test_diarization_onnx files: both packages take the executor
+    route (``onnx_nets``) for both nets, with no ``diarization-fallback``
+    event, and give the same text."""
+    from crispy_tpu_torch.models import onnx_nets
     from test_diarization_onnx import make_embedding_onnx, make_segmentation_onnx
 
     mm = StubManager(make_segmentation_onnx(tmp_path / "seg.onnx"),
                      make_embedding_onnx(tmp_path / "emb.onnx"))
-
-    def runner(net):
-        return lambda path: td.onnx_runner(net, path)
-
-    monkeypatch.setattr(onnx_nets, "segmentation_runner", runner("segmentation"))
-    monkeypatch.setattr(onnx_nets, "embedding_runner", runner("embedding"))
+    built = []
+    for name in ("segmentation_runner", "embedding_runner"):
+        fn = getattr(onnx_nets, name)
+        monkeypatch.setattr(onnx_nets, name,
+                            lambda *a, fn=fn, **k: built.append(fn.__name__) or fn(*a, **k))
     words = [(0.0, 4.0, "hello"), (4.0, 8.0, "world")]
     tbus, jbus = EventBus(), JEventBus()
     tbus.keep_history = jbus.keep_history = True
@@ -461,12 +458,9 @@ def test_run_diarization_with_downloaded_nets_matches_jax(tmp_path, monkeypatch)
                              device="cpu")
     want = jd.run_diarization(speech_audio(), SR, words, model_manager=mm, bus=jbus)
     assert got == want and "[Speaker 1|0.0]" in got
-    tev = [p for e, p in tbus.history if e == "diarization-fallback"]
-    jev = [p for e, p in jbus.history if e == "diarization-fallback"]
-    assert [e["net"] for e in tev] == [e["net"] for e in jev] == ["segmentation", "embedding"]
-    for t, j in zip(tev, jev):
-        assert t["error"].startswith(j["error"]) and "queue 1, item 10b" in t["error"]
-        assert "native port:" in t["error"]
+    assert built == ["segmentation_runner", "embedding_runner"]
+    assert not [e for e, _ in tbus.history if e == "diarization-fallback"]
+    assert not [e for e, _ in jbus.history if e == "diarization-fallback"]
 
 
 def test_run_diarization_without_nets_emits_nothing():

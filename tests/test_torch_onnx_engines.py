@@ -9,9 +9,9 @@ classes swapped for ``dual_engine`` pairs: each bundle loads in both
 packages and every transcription call must give equal texts, and equal
 word segments with times within 1e-6 s, before the case's own checks see
 the JAX package's. Then the catalog ids through the port's ``load_engine``
-(the four this slice ports load and transcribe as the JAX package does;
-the four enc-dec layouts raise NotImplementedError naming item 10b), and
-``run_transcription`` with each ported engine, a padded bucket included.
+(each loads the JAX package's engine type and transcribes as it does; the
+enc-dec cases in full are tests/test_torch_onnx_encdec.py), and
+``run_transcription`` with each TDT and CTC engine, a padded bucket included.
 """
 
 import numpy as np
@@ -161,12 +161,9 @@ def test_catalog_bundles_through_the_ports_load_engine(model_id, tmp_path):
     path = mm.model_path(model_id)
     path.mkdir(parents=True)
     BUNDLE_MAKERS[model_id](path)
-    if model_id in ENC_DEC:
-        with pytest.raises(NotImplementedError, match="item 10b"):
-            tr.load_engine(model_id, mm, device="cpu")
-        return
     eng = tr.load_engine(model_id, mm, device="cpu")
-    want_cls = teng.OnnxTdtEngine if "parakeet" in model_id else teng.OnnxCtcEngine
+    want_cls = (teng.OnnxEncDecEngine if model_id in ENC_DEC
+                else teng.OnnxTdtEngine if "parakeet" in model_id else teng.OnnxCtcEngine)
     assert type(eng) is want_cls
     jeng_ = jtr.load_engine(model_id, jreg.ModelManager(models_dir=models, bus=JEventBus()))
     x = _chunks()

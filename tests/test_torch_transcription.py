@@ -228,9 +228,8 @@ class TestPipeline:
         assert tm_.get_current_model() == "b"
 
     def test_diarization_is_not_ported(self, setup):
-        """Diarization itself is ported; its first route for a downloaded
-        net, the ONNX executor, is not (ROADMAP queue 1, item 10). Such a
-        net's executor step raises NotImplementedError, the native loader
+        """A downloaded net that neither route can run: the ONNX executor
+        refuses its unsupported op (NotImplementedError), the native loader
         is tried next (it cannot map this graph), and the transcript is
         diarized by the stand-in nets, with one diarization-fallback event
         that carries both errors."""
@@ -247,7 +246,7 @@ class TestPipeline:
         assert engine.calls == [(1, tr.CHUNK_SAMPLES)]
         evs = [p for e, p in bus.history if e == "diarization-fallback"]
         assert [e["net"] for e in evs] == ["segmentation"]
-        assert "queue 1, item 10" in evs[0]["error"]
+        assert evs[0]["error"].startswith("unsupported ONNX ops: CustomOp")
         assert "native port: expected 2 tensor(s)" in evs[0]["error"]
         assert tm_.get_state(str(wav)).status == "completed"
 
@@ -355,8 +354,8 @@ def install_model(models_dir, ggml_file, model_id="small"):
 def test_load_engine_transcribes(tmp_path, data_root, ggml_file):
     """load_engine's whisper engine (the full fallback ladder) on the ggml
     file under a catalog id; a model not downloaded raises, and so does a
-    bundle that needs the ONNX executor (the native families are held in
-    tests/test_torch_asr_engines.py)."""
+    bundle directory that holds no .onnx file for the ONNX executor (the
+    native families are held in tests/test_torch_asr_engines.py)."""
     mm = ModelManager(models_dir=tmp_path / "Models")
     with pytest.raises(FileNotFoundError):
         tr.load_engine("small", mm, device="cpu")
@@ -375,7 +374,7 @@ def test_load_engine_transcribes(tmp_path, data_root, ggml_file):
     with pytest.raises(FileNotFoundError, match="not downloaded"):
         tr.load_engine("moonshine-base", mm, device="cpu")
     (tmp_path / "Models" / ModelManager.find("moonshine-base").filename).mkdir()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(FileNotFoundError, match="no .onnx files"):
         tr.load_engine("moonshine-base", mm, device="cpu")
 
 
