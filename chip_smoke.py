@@ -168,12 +168,32 @@ Phases, each printed on its own lines; any failure exits non-zero:
      decoder and cohere enc-dec layouts of the JAX package's engine tests
      through ``load_engine``, card vs CPU (equal texts and word segments).
 
+ 14. RNNoise training (``dsp/rnnoise/training.py``, ``parallel/train.py``) at
+     the training tool's defaults, B=32 streams x F=100 frames, the builtin
+     net's widths (87,503 weights): (a) ``make_batch`` from seed 0 on the
+     card against the port's CPU path on the same draws (features on frames
+     with equal pitch index, gains on bands above digital silence, the mask,
+     pitch indices that differ counted); (b) the masked loss and its
+     gradients at train_model's init on that batch, card vs CPU; (c)
+     ``train_model`` in corpus mode, 256 corpus streams, 200 steps, 25 a
+     call: each call's wall, ms a step, peak memory, the loss curve (finite,
+     falling), K2 and K3 once a step and no other kernel, then one more
+     step under torch.profiler (launches a step, the device's busy share);
+     (d) five host-mode steps with ``synth_batch``'s share; (e) the held-out
+     SNR gain of the packaged model, card vs CPU (K1-K3 launched), and of
+     the 200-step model; (f) ``python -m crispy_tpu_torch.tools.train_rnnoise
+     --steps 50 --corpus-streams 64`` in a process of its own (the saved
+     model must load), then ``cli models list`` and ``cli update`` (the
+     index a local stand-in).
+
 The Whisper, ASR, diarization and ONNX phases run no hand-written kernel
 (the JAX package's models and executor have no Pallas kernel), so they add
-no row to the kernels line.
+no row to the kernels line. The training net's backward is autograd in
+plain PyTorch (K1 is forward-only, and the JAX package trains through a
+plain scan); phase 14 runs K2 and K3 in its targets.
 
-Then one JSON line with every kernel's numbers (launches from phases 3, 4
-and 9b), and as the last line
+Then one JSON line with every kernel's numbers (launches from phases 3, 4,
+9b and 14c), and as the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``crispy_tpu``.
 """
 
@@ -272,6 +292,33 @@ ENCDEC_PROFILE_STEPS = 8  # phase 13a: decode steps under torch.profiler (its tr
 ENCDEC_BEAM = 4
 EXEC_EMB_CHUNKS = 16  # phase 13b: embeddings card vs CPU
 DRILL_TIMEOUT = 900  # phase 13c: seconds for the hour drill's process
+
+TRAIN_B, TRAIN_F = 32, 100  # phase 14: the training tool's defaults, the builtin net's widths
+TRAIN_CORPUS = 256  # phase 14c: corpus streams on the card
+TRAIN_STEPS, TRAIN_SPC = 200, 25  # phase 14c: steps, steps a call
+TRAIN_PROFILE_STEPS = 1  # phase 14c: steps under torch.profiler (~20,600 launches a step to read back)
+TRAIN_HOST_STEPS = 5  # phase 14d
+TOOL_STEPS, TOOL_CORPUS = 50, 64  # phase 14f: the training tool in a process of its own
+# phase 14a, make_batch card vs CPU. Both run the port's f32 HP biquad (a
+# Toeplitz product and a carry scan: cuBLAS against MKL), whose rounding is
+# ~10 at the x32768 scale on strong low-frequency noise; a quiet band's
+# energy carries it relative to its size, and log10 carries that into the
+# cepstra. Gated on the distribution among frames with equal pitch index:
+# the median frame's largest difference and every frame's. Set from this
+# batch's own readings on the H100 (seed 0, the same in every run so far):
+# median frame 6.819e-05, largest 4.921e-02.
+BATCH_FEAT_MEDIAN_TOL, BATCH_FEAT_MAX_TOL = 2e-4, 7.5e-2
+# gains on bands above digital silence (noisy Ex >= 1 at the x32768 scale),
+# absolute: the 99.9th percentile and the largest (readings 2.107e-03, 1.084e-02)
+BATCH_GAIN_Q_TOL, BATCH_GAIN_MAX_TOL = 5e-3, 2e-2
+TRAIN_LOSS_RTOL = 1e-5  # phase 14b: the loss card vs CPU, relative (f32 vs f64 on the CPU: 5e-8)
+TRAIN_GRAD_RTOL = 1e-4  # phase 14b: x each tensor's largest |g| (f32 vs f64 on the CPU: 3.4e-7)
+# phase 14e, dB: the packaged model's held-out SNR gain card vs CPU, both the
+# port (reading 3e-4 dB; the port against the JAX package, whose HP stages
+# really differ, is held at 0.05 dB in tests/test_torch_training.py)
+SNR_CARD_TOL = 5e-3
+PROBE_LAUNCHES = 5000  # launch-rate probe: in-place adds on one element, host clock
+STEP_PROBE_STEPS = 5  # training-step probe at phase 1 and [14c]
 
 
 def fail(msg: str) -> None:
@@ -1393,13 +1440,15 @@ def recorded(module, name: str, keep=None):
         setattr(module, name, fn)
 
 
-def profile_call(torch, fn) -> dict:
+def profile_call(torch, fn, cpu: bool = True) -> dict:
     """One call of fn under torch.profiler: kernel launches, device time,
-    wall time (host clock, synchronised)."""
+    wall time (host clock, synchronised). ``cpu=False`` traces the card
+    alone, which reads back faster."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1412,6 +1461,165 @@ def profile_call(torch, fn) -> dict:
             "wall_ms": wall_ms, "busy_share": dev_ms / wall_ms,
             "top": [(e.key[:60], round(e.self_device_time_total / 1e3, 3), e.count)
                     for e in top]}
+
+
+def launch_us(torch) -> float:
+    """Host microseconds a launch of a one-element in-place add, over
+    PROBE_LAUNCHES launches (synchronised) after as many to warm up: how fast
+    this process, in its state at the call, feeds the card."""
+    x = torch.zeros(1, device="cuda")
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PROBE_LAUNCHES):
+            x.add_(1.0)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / PROBE_LAUNCHES * 1e6
+
+
+def train_step_ms(torch, dev) -> float:
+    """Median host ms of one training step (masked loss, autograd's backward,
+    Adam; synchronised) at B=TRAIN_B x F=TRAIN_F on one fixed batch, over
+    STEP_PROBE_STEPS steps after one to warm up: the same work early and late
+    in the smoke, so the two readings show what the process's state costs
+    [14c]'s steps."""
+    from crispy_tpu_torch.dsp.rnnoise import pipeline, training
+    from crispy_tpu_torch.parallel import train as ptrain
+
+    batch = training.make_batch(pipeline.make_params(None, dev), np.random.default_rng(0),
+                                TRAIN_B, TRAIN_F)
+    step, to_device_params, _, optimizer = ptrain.make_train_step(dev)
+    net = to_device_params(ptrain.init_train_params())
+    opt = optimizer(net)
+    ms = []
+    for _ in range(STEP_PROBE_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net, opt, _ = step(net, opt, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms[1:]))
+
+
+def process_cpu() -> dict:
+    """CPU seconds (user + system) of every process on the host but this
+    one, by pid, with its name."""
+    tick = os.sysconf("SC_CLK_TCK")
+    out = {}
+    for proc in Path("/proc").iterdir():
+        if not proc.name.isdigit() or int(proc.name) == os.getpid():
+            continue
+        try:
+            stat = (proc / "stat").read_text()
+        except OSError:
+            continue
+        fields = stat[stat.rindex(")") + 2:].split()
+        out[int(proc.name)] = (stat[stat.index("(") + 1: stat.rindex(")")],
+                               (int(fields[11]) + int(fields[12])) / tick)
+    return out
+
+
+def thread_cpu() -> dict:
+    """CPU seconds (user + system) of each of this process's threads, by
+    native id, with the thread's name."""
+    tick = os.sysconf("SC_CLK_TCK")
+    out = {}
+    for task in Path("/proc/self/task").iterdir():
+        try:
+            stat = (task / "stat").read_text()
+            name = (task / "comm").read_text().strip()
+        except OSError:
+            continue
+        fields = stat[stat.rindex(")") + 2:].split()
+        out[int(task.name)] = (name, (int(fields[11]) + int(fields[12])) / tick)
+    return out
+
+
+def fresh_probes() -> Tuple[float, float]:
+    """launch_us and train_step_ms in a new process on the card, started
+    now: the host at this moment, without this process's state."""
+    code = ("import json, sys, torch; sys.path.insert(0, sys.argv[1]); import chip_smoke as cs; "
+            "print(json.dumps([cs.launch_us(torch), "
+            "cs.train_step_ms(torch, torch.device('cuda'))]))")
+    proc = subprocess.run([sys.executable, "-c", code, str(ROOT)], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:])
+        fail(f"the probes' process failed (exit {proc.returncode})")
+    return tuple(json.loads(proc.stdout.strip().splitlines()[-1]))
+
+
+@contextlib.contextmanager
+def gc_time():
+    """Seconds the cyclic garbage collector spends while the block runs, by
+    generation, with the number of collections: {gen: [seconds, count]}."""
+    import gc
+
+    spent, started = {0: [0.0, 0], 1: [0.0, 0], 2: [0.0, 0]}, [0.0]
+
+    def cb(phase, info):
+        if phase == "start":
+            started[0] = time.perf_counter()
+        else:
+            spent[info["generation"]][0] += time.perf_counter() - started[0]
+            spent[info["generation"]][1] += 1
+
+    gc.callbacks.append(cb)
+    try:
+        yield spent
+    finally:
+        gc.callbacks.remove(cb)
+
+
+@contextlib.contextmanager
+def call_inputs(module, name: str):
+    """The positional arguments of every call of ``module.name`` while the
+    block runs, in a list (the tensors cloned as they came in)."""
+    fn, out = getattr(module, name), []
+
+    def rec(*args):
+        out.append(tuple(a.clone() for a in args))
+        return fn(*args)
+
+    setattr(module, name, rec)
+    try:
+        yield out
+    finally:
+        setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def path_k23_inputs(pipeline):
+    """K2 and K3's inputs as the pipeline's frontend gives them while the
+    block runs: (rd_scan calls, pitch_window_gather calls)."""
+    with call_inputs(pipeline, "rd_scan") as rd, \
+            call_inputs(pipeline, "pitch_window_gather") as pg:
+        yield rd, pg
+
+
+def check_k23(torch, rk, ok, rd_calls, pg_calls, where: str) -> str:
+    """K2 and K3 on the inputs a path gave them, against their plain versions
+    on the same tensors on the card and on copies on the CPU: bit-equal
+    required, as in phase 2. Returns the line's text."""
+    if not (rd_calls and pg_calls):
+        fail(f"{where}: the path made no K2 or K3 call ({len(rd_calls)}, {len(pg_calls)})")
+    shapes = []
+    for name, calls, kern, plain in (("rd_scan", rd_calls, rk.rd_scan, rk.rd_scan_reference),
+                                     ("pitch_window_gather", pg_calls, ok.pitch_window_gather,
+                                      ok.pitch_window_gather_reference)):
+        for args in calls:
+            got = kern(*args)
+            ref = plain(*args)
+            ref_cpu = plain(*(a.cpu() for a in args))
+            got, ref, ref_cpu = ((t,) if isinstance(t, torch.Tensor) else tuple(t)
+                                 for t in (got, ref, ref_cpu))
+            if not all(torch.equal(a, b) and torch.equal(a.cpu(), c)
+                       for a, b, c in zip(got, ref, ref_cpu)):
+                fail(f"{where}: {name} differs from its plain version on the path's own "
+                     f"inputs {[tuple(a.shape) for a in args]}")
+            shapes.append(f"{name} {tuple(args[0].shape)}")
+    return (f"K2 and K3 on the path's own inputs ({', '.join(shapes)}) bit-equal to their plain "
+            f"versions on the card and on the CPU")
 
 
 def engine_rtf(torch, eng, x) -> Tuple[float, List[str]]:
@@ -2900,6 +3108,313 @@ def encdec_phase(torch, dev, card: str, drill: DrillProcess) -> None:
           f"{t3 - t2:.1f}, {t4 - t3:.1f}, {time.perf_counter() - t4:.1f} s")
 
 
+def train_batch_check(torch, training, pipeline, rk, ok, dev) -> dict:
+    """[14a]: make_batch at B x F from seed 0 on the card against the port's
+    CPU path on the same draws, and K2 and K3 on the inputs the card's own
+    frontend gave them; returns the CPU batch."""
+    t0 = time.perf_counter()
+    with path_k23_inputs(pipeline) as (rd, pg):
+        gpu = training.make_batch(pipeline.make_params(None, dev), np.random.default_rng(0),
+                                  TRAIN_B, TRAIN_F)
+    torch.cuda.synchronize()
+    t_gpu = time.perf_counter() - t0
+    print(f"[14a] {check_k23(torch, rk, ok, rd, pg, '[14a]')}")
+    cpu_params = pipeline.make_params(None, "cpu")
+    cpu = training.make_batch(cpu_params, np.random.default_rng(0), TRAIN_B, TRAIN_F)
+    _, noisy, _ = training.synth_batch(np.random.default_rng(0), TRAIN_B, TRAIN_F)
+    with torch.no_grad():
+        _, fr = pipeline.frontend_block(cpu_params, pipeline.init_state(TRAIN_B, "cpu"),
+                                        torch.from_numpy(noisy))
+    gf, cf = gpu["features"].cpu().numpy(), cpu["features"].numpy()
+    same = gf[..., 40] == cf[..., 40]  # the pitch feature: 0.01 (index - 300)
+    fd = np.abs(gf - cf).max(-1)[same]
+    live = fr["Ex"].numpy() >= 1.0
+    gd = np.abs(gpu["gains"].cpu().numpy() - cpu["gains"].numpy())[live]
+    mask_diff = gpu["mask"].cpu().numpy() != cpu["mask"].numpy()
+    E = fr["Ex"].numpy().sum(-1)[mask_diff]
+    print(f"[14a] make_batch B={TRAIN_B} F={TRAIN_F} from seed 0 on the card "
+          f"({t_gpu:.2f} s with synth_batch) vs the CPU path: {int((~same).sum())} frames with "
+          f"another pitch index; on the rest features max|diff| {fd.max():.3e} (tol "
+          f"{BATCH_FEAT_MAX_TOL}), median frame {np.median(fd):.3e} (tol {BATCH_FEAT_MEDIAN_TOL}), "
+          f"99th pct {np.quantile(fd, 0.99):.3e}; gains on {int(live.sum())} live bands max "
+          f"{gd.max():.3e} (tol {BATCH_GAIN_MAX_TOL}), 99.9th pct {np.quantile(gd, 0.999):.3e} "
+          f"(tol {BATCH_GAIN_Q_TOL}); mask differs on {int(mask_diff.sum())} frames (energies "
+          f"{np.round(E, 4).tolist()}); vad equal {bool(torch.equal(gpu['vad'].cpu(), cpu['vad']))}")
+    if not (fd.max() <= BATCH_FEAT_MAX_TOL and np.median(fd) <= BATCH_FEAT_MEDIAN_TOL):
+        fail("[14a] features differ card vs CPU")
+    if not (gd.max() <= BATCH_GAIN_MAX_TOL and np.quantile(gd, 0.999) <= BATCH_GAIN_Q_TOL):
+        fail("[14a] gains differ card vs CPU")
+    if not torch.equal(gpu["vad"].cpu(), cpu["vad"]):
+        fail("[14a] vad targets differ")
+    # a mask bit may flip only at the silence threshold (E < 0.1 at the x32768 scale)
+    if mask_diff.sum() > 0 and not np.all(np.abs(E - 0.1) <= 1e-3):
+        fail(f"[14a] masks differ away from the silence threshold: {E}")
+    if not all(np.isfinite(v.numpy()).all() for v in cpu.values()):
+        fail("[14a] non-finite batch")
+    return cpu
+
+
+def train_step_check(torch, ptrain, dev, batch: dict) -> None:
+    """[14b]: the masked loss and its gradients at train_model's init on the
+    [14a] CPU batch, on the card against the CPU."""
+    rng = np.random.default_rng(1)
+    p = {k: (rng.standard_normal(v.shape) * 0.08).astype(np.float32) if k[-1] in "wu"
+         else np.zeros_like(v) for k, v in ptrain.init_train_params().items()}
+    out = []
+    for d in (dev, torch.device("cpu")):
+        net = ptrain.RNNoiseTrainNet(p, d)
+        loss = ptrain.loss_fn(net, {k: v.to(d) for k, v in batch.items()})
+        loss.backward()
+        out.append((float(loss.detach()), {n: q.grad.cpu().numpy() for n, q in net.named_parameters()}))
+    (lg, gg), (lc, gc) = out
+    rel = {k: float(np.abs(gg[k] - gc[k]).max() / np.abs(gc[k]).max()) for k in gc}
+    worst = max(rel, key=rel.get)
+    print(f"[14b] one training step's loss on the card {lg:.7f}, CPU {lc:.7f} (rel "
+          f"{abs(lg - lc) / abs(lc):.3e}, tol {TRAIN_LOSS_RTOL}); gradients, x each tensor's "
+          f"largest |g|: worst {worst} {rel[worst]:.3e} (tol {TRAIN_GRAD_RTOL})")
+    if not abs(lg - lc) <= TRAIN_LOSS_RTOL * abs(lc):
+        fail("[14b] the loss differs card vs CPU")
+    if not rel[worst] <= TRAIN_GRAD_RTOL:
+        fail(f"[14b] the gradient of {worst} differs card vs CPU")
+
+
+def train_corpus_run(torch, training, dev, card: str, kernels: dict, probe0: tuple):
+    """[14c]: train_model in corpus mode on the card, every call timed (host
+    clock, synchronised: the losses are read once a call anyway), then
+    TRAIN_PROFILE_STEPS more from the last call's state under torch.profiler.
+    Beside the times, what the process's state costs them: the launch and
+    step probes here against phase 1's (``probe0``) and a new process's at
+    this moment, the garbage collector's time and the other threads' CPU
+    during train_model. Returns the model and the kernels' launches in the
+    train_model call."""
+    import gc
+    import threading
+
+    walls, last = [], {}
+    real = training._corpus_call
+
+    def timed(*args):
+        t = time.perf_counter()
+        ls = real(*args)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        last["args"] = args
+        return ls
+
+    probe = (launch_us(torch), train_step_ms(torch, dev))
+    fresh = fresh_probes()
+    n_objects = len(gc.get_objects())
+    names = sorted(t.name for t in threading.enumerate() if t is not threading.main_thread())
+    main_tid = threading.main_thread().native_id
+    for k, attr in kernels.values():
+        setattr(k, attr, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # what earlier phases still hold
+    cpu0, host0 = thread_cpu(), process_cpu()
+    training._corpus_call = timed
+    try:
+        with gc_time() as gct:
+            t0 = time.perf_counter()
+            model, losses = training.train_model(
+                steps=TRAIN_STEPS, batch_streams=TRAIN_B, frames=TRAIN_F,
+                corpus_streams=TRAIN_CORPUS, steps_per_call=TRAIN_SPC, log_every=TRAIN_SPC,
+                device=None)
+            wall = time.perf_counter() - t0
+    finally:
+        training._corpus_call = real
+    cpu1, host1 = thread_cpu(), process_cpu()
+    others = sorted(((cpu1[t][1] - cpu0.get(t, ("", 0.0))[1], cpu1[t][0]) for t in cpu1
+                     if t != main_tid), reverse=True)
+    procs = sorted(((host1[p][1] - host0.get(p, ("", 0.0))[1], host1[p][0]) for p in host1),
+                   reverse=True)
+    modes = (torch.autograd.profiler._is_profiler_enabled,
+             torch._C._len_torch_function_stack(), torch._C._len_torch_dispatch_stack())
+    print(f"[14c] the process's state: launch probe {probe[0]:.2f} us a launch (phase 1: "
+          f"{probe0[0]:.2f}; a new process now: {fresh[0]:.2f}), training-step probe "
+          f"{probe[1]:.2f} ms (phase 1: {probe0[1]:.2f}; a new process now: {fresh[1]:.2f}); "
+          f"{n_objects} objects tracked by the garbage collector, which took "
+          f"{', '.join(f'gen {g} {v[0]:.3f} s in {v[1]}' for g, v in gct.items())} during "
+          f"train_model; main thread {cpu1[main_tid][1] - cpu0[main_tid][1]:.2f} s CPU, "
+          f"{len(cpu1) - 1} other threads {sum(c for c, _ in others):.2f} s (top "
+          f"{[(nm, round(c, 2)) for c, nm in others[:4]]}); Python threads {names}; "
+          f"{len(host1)} other processes {sum(c for c, _ in procs):.2f} s CPU (top "
+          f"{[(nm, round(c, 2)) for c, nm in procs[:4]]}); profiler on, torch function and "
+          f"dispatch modes: {modes}")
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    launches = {name: getattr(k, attr) for name, (k, attr) in kernels.items()}
+    steady = walls[1:]
+    med = float(np.median(steady))
+    print(f"[14c] train_model corpus mode B={TRAIN_B} F={TRAIN_F}, {TRAIN_CORPUS} corpus streams, "
+          f"{TRAIN_STEPS} steps, {TRAIN_SPC} a call, on the card: wall {wall:.2f} s (corpus build "
+          f"and quantization included); calls {', '.join(f'{w:.3f}' for w in walls)} s; "
+          f"{1e3 * med / TRAIN_SPC:.2f} ms a step (median of calls 2-{len(walls)}, spread "
+          f"{100 * (max(steady) - min(steady)) / med:.1f}%; the first call "
+          f"{1e3 * walls[0] / TRAIN_SPC:.2f} ms a step); peak memory {peak:.3f} GiB above the {held / 2 ** 30:.3f} GiB held before it; losses "
+          f"{[round(v, 4) for v in losses]}; launches {launches} [{card}]")
+    if not (len(losses) == TRAIN_STEPS // TRAIN_SPC and np.all(np.isfinite(losses))):
+        fail(f"[14c] bad loss curve {losses}")
+    if not losses[-1] < losses[0]:
+        fail("[14c] the loss did not fall")
+    for name in ("rd_scan", "pitch_window_gather"):
+        if launches[name] != TRAIN_STEPS:
+            fail(f"[14c] {name}: {launches[name]} launches for {TRAIN_STEPS} steps")
+    if any(launches[n] for n in kernels if n not in ("rd_scan", "pitch_window_gather")):
+        fail(f"[14c] a kernel off the training path launched: {launches}")
+
+    step, net, opt, sched, pools, pipe_params, idx, snr = last["args"]
+    n = TRAIN_PROFILE_STEPS
+    before = {name: getattr(k, attr) for name, (k, attr) in kernels.items()}
+    prof = profile_call(torch, lambda: real(step, net, opt, sched, pools, pipe_params,
+                                            idx[:, :n], snr[:n]), cpu=False)
+    k23 = {name: getattr(k, attr) - before[name] for name, (k, attr) in kernels.items()
+           if name in ("rd_scan", "pitch_window_gather")}
+    print(f"[14c] {n} more step(s) under torch.profiler: {prof['launches'] / n:.0f} launches a step, "
+          f"device {prof['device_ms'] / n:.3f} ms of {prof['wall_ms'] / n:.3f} ms a step (busy "
+          f"{100 * prof['busy_share']:.1f}%); K2, K3 launches {k23}; top {prof['top']} [{card}]")
+    return model, launches
+
+
+def train_host_run(torch, training, card: str) -> None:
+    """[14d]: host mode (one synth_batch a step), with synth_batch's share."""
+    spent = []
+    real = training.synth_batch
+
+    def timed(*a, **kw):
+        t = time.perf_counter()
+        out = real(*a, **kw)
+        spent.append(time.perf_counter() - t)
+        return out
+
+    training.synth_batch = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, losses = training.train_model(steps=TRAIN_HOST_STEPS, batch_streams=TRAIN_B,
+                                         frames=TRAIN_F, log_every=1)
+        wall = time.perf_counter() - t0
+    finally:
+        training.synth_batch = real
+    print(f"[14d] train_model host mode, {TRAIN_HOST_STEPS} steps B={TRAIN_B} F={TRAIN_F}: "
+          f"{1e3 * wall / TRAIN_HOST_STEPS:.1f} ms a step, synth_batch "
+          f"{1e3 * sum(spent) / len(spent):.1f} ms a step ({100 * sum(spent) / wall:.1f}% of the "
+          f"wall); losses {[round(v, 4) for v in losses]} [{card}]")
+    if not np.all(np.isfinite(losses)):
+        fail("[14d] non-finite loss")
+
+
+def training_phase(torch, dev, card: str, kernels: dict, probe0: tuple) -> dict:
+    from crispy_tpu_torch.dsp.rnnoise import ops_kernels as ok
+    from crispy_tpu_torch.dsp.rnnoise import pipeline, training
+    from crispy_tpu_torch.dsp.rnnoise import rnn_kernels as rk
+    from crispy_tpu_torch.dsp.rnnoise.weights import RNNoiseModel, builtin_model
+    from crispy_tpu_torch.parallel import train as ptrain
+
+    t = [time.perf_counter()]
+    batch = train_batch_check(torch, training, pipeline, rk, ok, dev)
+    train_step_check(torch, ptrain, dev, batch)
+    t.append(time.perf_counter())
+    model, launches = train_corpus_run(torch, training, dev, card, kernels, probe0)
+    t.append(time.perf_counter())
+    train_host_run(torch, training, card)
+    t.append(time.perf_counter())
+
+    # [14e] held-out SNR gain: the packaged model card vs CPU, the new model
+    before = {name: getattr(k, attr) for name, (k, attr) in kernels.items()}
+    with path_k23_inputs(pipeline) as (rd, pg):
+        g_card = training.snr_improvement(builtin_model())
+    k_snr = {name: getattr(k, attr) - before[name] for name, (k, attr) in kernels.items()}
+    g_cpu = training.snr_improvement(builtin_model(), device="cpu")
+    g_new = training.snr_improvement(model)
+    print(f"[14e] held-out SNR improvement of the packaged model: card {g_card:+.4f} dB, CPU "
+          f"{g_cpu:+.4f} dB (|diff| {abs(g_card - g_cpu):.2e}, tol {SNR_CARD_TOL}); launches "
+          f"{k_snr}; the {TRAIN_STEPS}-step model ({model.name}) on the card {g_new:+.4f} dB")
+    print(f"[14e] {check_k23(torch, rk, ok, rd, pg, '[14e]')}")
+    if not abs(g_card - g_cpu) <= SNR_CARD_TOL:
+        fail("[14e] the SNR gain differs card vs CPU")
+    if not np.isfinite(g_new):
+        fail("[14e] non-finite SNR gain")
+    for name in ("nn_scan", "rd_scan", "pitch_window_gather"):
+        if k_snr[name] < 1:
+            fail(f"[14e] {name} did not launch in snr_improvement")
+    t.append(time.perf_counter())
+
+    # [14f] the training tool in a process of its own, then the CLI
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "trained.npz"
+        env = dict(os.environ, CRISPY_DATA_DIR=str(Path(tmp) / "Crispy"))
+        t1 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "crispy_tpu_torch.tools.train_rnnoise", "--steps",
+             str(TOOL_STEPS), "--corpus-streams", str(TOOL_CORPUS), "--out", str(out)],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        tool_wall = time.perf_counter() - t1
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], sep="\n")
+            fail(f"[14f] the training tool failed (exit {proc.returncode})")
+        loaded = RNNoiseModel.load(out)
+        print(f"[14f] python -m crispy_tpu_torch.tools.train_rnnoise --steps {TOOL_STEPS} "
+              f"--corpus-streams {TOOL_CORPUS}: {tool_wall:.1f} s; "
+              f"{' | '.join(proc.stdout.strip().splitlines())}; the saved model loads as "
+              f"{loaded.name!r}")
+        if loaded.name != f"synthetic-{TOOL_STEPS}steps-corpus":
+            fail("[14f] the saved model is not the tool's")
+        cli_lines(Path(tmp) / "Crispy")
+    t.append(time.perf_counter())
+    print(f"[14] 14a-b, 14c, 14d, 14e, 14f took "
+          f"{', '.join(f'{b - a:.1f}' for a, b in zip(t, t[1:]))} s")
+    return launches
+
+
+def cli_lines(data: Path) -> None:
+    """``cli models list`` and ``cli update`` as a user runs them, the index
+    a local stand-in (the machine has no network)."""
+    import http.server
+    import io
+    import threading
+
+    from crispy_tpu_torch import cli
+    from crispy_tpu_torch.utils import updater
+
+    class Index(http.server.BaseHTTPRequestHandler):
+        def do_GET(self):
+            body = json.dumps({"info": {"version": "0.1.0"}}).encode()
+            self.send_response(200)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *a):
+            pass
+
+    srv = http.server.HTTPServer(("127.0.0.1", 0), Index)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    saved = os.environ.get("CRISPY_DATA_DIR"), updater.INDEX_URL
+    os.environ["CRISPY_DATA_DIR"] = str(data)
+    updater.INDEX_URL = f"http://127.0.0.1:{srv.server_port}/json"
+    try:
+        outs = []
+        for argv in (["models", "list"], ["update"]):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(argv)
+            outs.append(buf.getvalue())
+            if rc != 0:
+                fail(f"[14f] cli {' '.join(argv)} exited {rc}")
+    finally:
+        srv.shutdown()
+        updater.INDEX_URL = saved[1]
+        if saved[0] is None:
+            os.environ.pop("CRISPY_DATA_DIR", None)
+        else:
+            os.environ["CRISPY_DATA_DIR"] = saved[0]
+    lines = outs[0].strip().splitlines()
+    upd = json.loads(outs[1])
+    print(f"[14f] cli models list: {len(lines)} lines, last {lines[-1]!r}; cli update: {upd}")
+    if len(lines) != 16 or upd["status"] != "up-to-date":
+        fail("[14f] the CLI's models list or update is wrong")
+
+
 def main() -> int:
     # The run uses one card: show torch only the first visible one, so the
     # count it reports is the count it used.
@@ -2947,6 +3462,10 @@ def main() -> int:
     model = builtin_model()
     dev = resolve_device(None)  # the entry points' default: the card
     params = pipeline.make_params(model, dev)
+    probe0 = (launch_us(torch), train_step_ms(torch, dev))
+    print(f"[1] launch probe: {probe0[0]:.2f} us a launch ({PROBE_LAUNCHES} one-element adds, "
+          f"host clock); training-step probe: {probe0[1]:.2f} ms a step (B={TRAIN_B}, "
+          f"F={TRAIN_F}, median of {STEP_PROBE_STEPS})")
 
     # --- 2: kernels against their plain versions --------------------------
     with torch.no_grad():
@@ -3146,6 +3665,13 @@ def main() -> int:
     t0 = time.perf_counter()
     encdec_phase(torch, dev, card, drill)
     print(f"[13] phase 13 took {time.perf_counter() - t0:.1f} s")
+
+    # --- 14: RNNoise training ----------------------------------------------
+    t0 = time.perf_counter()
+    train_launches = training_phase(torch, dev, card, kernels, probe0)
+    for name, c in train_launches.items():
+        launches[name] += c
+    print(f"[14] phase 14 took {time.perf_counter() - t0:.1f} s")
 
     for r in rows:
         r["launches"] = launches[r["name"]]

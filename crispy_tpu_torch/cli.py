@@ -7,22 +7,32 @@
                                                           polyphase rate conversion
   python -m crispy_tpu_torch.cli recordings list|rename|delete [PATH] [NAME]
                                                           recordings CRUD (host)
-  python -m crispy_tpu_torch.cli transcribe IN.wav --model ID [--language L]
+  python -m crispy_tpu_torch.cli transcribe IN.wav [--model ID] [--language L]
                                   [--output F] [--diarize]
                                                           speech-to-text, with
                                                           speaker tags on --diarize
+  python -m crispy_tpu_torch.cli models list|download|set|delete|inspect|validate [ID]
+                                                          model catalog, downloads,
+                                                          selection, bundle checks
+  python -m crispy_tpu_torch.cli convert IN.mp4          any media file -> 48 kHz WAV
+  python -m crispy_tpu_torch.cli update                  newer release on the index?
 
 ``CRISPY_FUSED_SPECTRA=on`` runs denoise and bench through the
 fused-spectra kernels (K4-K6) in place of the FFTs. ``transcribe`` loads
 the model from ``<data root>/Models`` (``CRISPY_DATA_DIR``, else
-``~/Documents/Crispy``) under its catalog file name; ``recordings`` works on
-``<data root>/Recordings``. ``--diarize`` diarizes the recording on the
-card and tags the text (``[Speaker N|start]``); downloaded diarization nets
-(``diarize-segmentation``, ``diarize-embedding``) load from the same
-directory, else the built-in stand-in nets run.
+``~/Documents/Crispy``) under its catalog file name; without ``--model`` it
+takes the selected model (``models set ID``; ``--model`` selects it).
+``--diarize`` turns the ``diarization_enabled`` app setting on, as the JAX
+package's CLI does, and the recording is diarized on the card with the
+settings' speaker count and merge gap; the text is tagged
+(``[Speaker N|start]``). Downloaded diarization nets (``diarize-segmentation``,
+``diarize-embedding``) load from the models directory, else the built-in
+stand-in nets run. ``recordings`` works on ``<data root>/Recordings``.
 
-denoise, bench, resample and transcribe run on the CUDA card by default and
-fail without one; ``--device cpu`` runs the plain PyTorch path instead.
+denoise, bench, resample, transcribe and ``models validate`` run on the CUDA
+card by default and fail without one; ``--device cpu`` runs the plain PyTorch
+path instead. ``models list|download|set|delete|inspect``, ``convert`` and
+``update`` need no card.
 """
 
 from __future__ import annotations
@@ -179,27 +189,128 @@ def _cmd_recordings(args) -> int:
 
 
 def _cmd_transcribe(args) -> int:
-    from .api.events import EventBus
-    from .engine import transcription as tr
-    from .models.registry import ModelManager
+    from .api.commands import CrispyApp
 
-    tm = tr.TranscriptionManager(ModelManager(), bus=EventBus(), device=args.device)
-    t0 = time.perf_counter()
-    rec = str(args.input)
-    try:
-        text = tr.run_transcription(rec, tm, args.model, language=args.language,
-                                    diarization={"enabled": True} if args.diarize else None)
-    except (ValueError, FileNotFoundError, NotImplementedError) as e:
-        print(json.dumps({"error": str(e)}))
+    app = CrispyApp(device=args.device)
+    if args.model:
+        app.set_active_model(args.model)
+    if not app.get_current_model():
+        print(json.dumps({"error": "no model selected; pass --model or "
+                                   "`models set <id>`"}))
         return 1
+    if args.diarize:
+        app.set_app_setting("diarization_enabled", "true")
+    t0 = time.perf_counter()
+    th = app.start_transcription(str(args.input), language=args.language)
+    th.join()
+    st = app.get_transcription_state(str(args.input)) or {}
+    text = app.get_transcription_result(str(args.input))
     if args.output:
         Path(args.output).write_text(text or "", encoding="utf-8")
     else:
         print(text or "")
-    st = tm.get_state(rec)
-    print(json.dumps({"status": st.status if st else None,
+    print(json.dumps({"status": st.get("status"),
                       "seconds_wall": round(time.perf_counter() - t0, 2)}), file=sys.stderr)
-    return 0 if st is not None and st.status == "completed" else 1
+    return 0 if st.get("status") == "completed" else 1
+
+
+def _cmd_models(args) -> int:
+    from .api.commands import CrispyApp
+
+    app = CrispyApp(device=args.device)
+    if args.action == "list":
+        for m in app.get_available_models():
+            mark = "*" if m["is_downloaded"] else " "
+            print(f"{mark} {m['id']:24s} {m['size_mb']:>6} MB  acc {m['accuracy_score']:.2f} "
+                  f"spd {m['speed_score']:.2f}  {m['name']}")
+        cur = app.get_current_model()
+        print(f"\nactive: {cur or '(none)'}  recommended: {app.get_recommended_first_model()}")
+    elif args.action == "download":
+        from .api.model_state import ModelStateTracker
+
+        tracker = ModelStateTracker(bus=app.bus)  # F5's state machine + EMA speed
+        t = app.download_model(args.model_id)
+
+        def show(_p):
+            snap = tracker.snapshot()
+            m = snap["models"].get(args.model_id, {})
+            pct = m.get("percentage") or 0.0
+            print(f"\r[{snap['status']}] {pct:5.1f}%  {snap['total_speed_mbps']:.2f} MB/s",
+                  end="", file=sys.stderr)
+
+        app.bus.listen("model-download-progress", show)
+        t.join()
+        print("", file=sys.stderr)
+        tracker.close()
+        print(json.dumps(app.get_model_info(args.model_id)))
+    elif args.action == "set":
+        app.set_active_model(args.model_id)
+        print(json.dumps({"active": args.model_id}))
+    elif args.action == "delete":
+        print(json.dumps({"deleted": app.delete_model(args.model_id)}))
+    elif args.action == "validate":
+        # turnkey real-artifact validation: load the REAL bundle through
+        # the normal engine path on the card, decode the committed 10 s
+        # utterance, optionally pin golden tokens
+        from .models import validate as val
+
+        if not app.model_manager.is_downloaded(args.model_id):
+            print(json.dumps({"error": f"{args.model_id} is not downloaded"}))
+            return 1
+        result = val.validate_model(args.model_id, app.model_manager,
+                                    device=app.device, language=args.language)
+        print(json.dumps(result, indent=2, ensure_ascii=False))
+        if args.pin is not None:
+            dest = Path(args.pin) if args.pin else val.golden_path(Path.cwd(), args.model_id)
+            val.pin_golden(result, dest)
+            print(f"pinned → {dest}", file=sys.stderr)
+    elif args.action == "inspect":
+        # bundle debugging: file inventory + ONNX graph I/O + op histogram
+        from collections import Counter
+
+        from .models.onnx_exec import load_onnx_graph
+
+        path = app.model_manager.model_path(args.model_id)
+        info = {"model_id": args.model_id, "path": str(path),
+                "downloaded": app.model_manager.is_downloaded(args.model_id),
+                "files": [], "graphs": {}}
+        if path and path.is_dir():
+            info["files"] = sorted(str(f.relative_to(path))
+                                   for f in path.rglob("*") if f.is_file())
+            for onnx in sorted(path.rglob("*.onnx")):
+                g = load_onnx_graph(onnx)
+                ops = Counter(n.op_type for n in g.nodes)
+                info["graphs"][onnx.name] = {
+                    "inputs": [{"name": n, "elem_type": t, "shape": sh}
+                               for n, t, sh in g.inputs if n not in g.initializers],
+                    "outputs": g.outputs,
+                    "initializers": len(g.initializers),
+                    "ops": dict(ops.most_common()),
+                }
+        elif path and path.is_file():
+            info["files"] = [path.name]
+        print(json.dumps(info, indent=2))
+    return 0
+
+
+def _cmd_convert(args) -> int:
+    from .engine.convert import check_ffmpeg, convert_to_wav
+
+    if not check_ffmpeg():
+        print(json.dumps({"error": "ffmpeg not found"}))
+        return 1
+    out = convert_to_wav(args.input)
+    print(json.dumps({"output": str(out)}))
+    return 0
+
+
+def _cmd_update(args) -> int:
+    """Updater analog (X9): report whether a newer release exists; the
+    upgrade itself stays a user action (the printed pip command)."""
+    from .utils import updater
+
+    print(json.dumps(updater.check_for_updates()))
+    return 0
 
 
 def main(argv=None) -> int:
@@ -238,13 +349,34 @@ def main(argv=None) -> int:
 
     t = sub.add_parser("transcribe", help="speech-to-text on a recording")
     t.add_argument("input", type=Path)
-    t.add_argument("--model", required=True, help="catalog model id")
+    t.add_argument("--model", default=None,
+                   help="catalog model id (default: the selected model, `models set`)")
     t.add_argument("--language", default="en", help="spoken language code (e.g. de, ru)")
     t.add_argument("--output", type=Path, default=None, help="default: print the text")
     t.add_argument("--diarize", action="store_true",
-                   help="tag the text with speakers ([Speaker N|start])")
+                   help="tag the text with speakers ([Speaker N|start]); turns the "
+                        "diarization_enabled app setting on")
     t.add_argument("--device", default=None, help="default: cuda")
     t.set_defaults(fn=_cmd_transcribe)
+
+    m = sub.add_parser("models", help="model catalog / downloads / selection")
+    m.add_argument("action", choices=["list", "download", "set", "delete",
+                                      "inspect", "validate"])
+    m.add_argument("model_id", nargs="?")
+    m.add_argument("--language", default="en")
+    m.add_argument("--pin", nargs="?", const="", default=None, metavar="PATH",
+                   help="write the golden record (default: "
+                        "tests/goldens/real_artifacts/<id>.json under the cwd)")
+    m.add_argument("--device", default=None, help="validate's device (default: cuda)")
+    m.set_defaults(fn=_cmd_models)
+
+    c = sub.add_parser("convert", help="any media file → 48 kHz WAV (ffmpeg)")
+    c.add_argument("input", type=Path)
+    c.set_defaults(fn=_cmd_convert)
+
+    upd = sub.add_parser(
+        "update", help="check the package index for a newer crispy-tpu release")
+    upd.set_defaults(fn=_cmd_update)
 
     args = p.parse_args(argv)
     return args.fn(args)

@@ -1,10 +1,13 @@
-"""Stage timers: the port's copy of ``stage`` from ``crispy_tpu/utils/tracing.py``.
+"""Stage timers and device traces: the port of ``crispy_tpu/utils/tracing.py``.
 
     with stage("transcribe-batch", bus):    # emits {"stage", "seconds", ...}
         ...
+    with device_trace("/tmp/trace"):        # torch.profiler capture
+        ...
 
-Device timelines come from ``torch.profiler`` (``cli bench --profile``,
-``chip_smoke.py``), not from here. Enable debug prints with CRISPY_DEBUG=1.
+``Timings`` sums the ``stage-timing`` events by stage. ``device_trace``
+writes a ``torch.profiler`` Chrome trace where the JAX package writes a
+``jax.profiler`` one. Enable debug prints with CRISPY_DEBUG=1.
 """
 
 from __future__ import annotations
@@ -13,7 +16,8 @@ import contextlib
 import os
 import sys
 import time
-from typing import Optional
+from pathlib import Path
+from typing import Dict, Optional
 
 from ..api.events import BUS, EventBus
 
@@ -35,3 +39,44 @@ def stage(name: str, bus: EventBus = BUS, extra: Optional[dict] = None):
         payload = {"stage": name, "seconds": dt, **(extra or {})}
         bus.emit("stage-timing", payload)
         debug(f"{name}: {dt*1000:.1f} ms")
+
+
+@contextlib.contextmanager
+def device_trace(trace_dir: str):
+    """torch.profiler capture of the host and, where there is one, the card,
+    written as a Chrome trace (``trace.json``) into ``trace_dir``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    out = Path(trace_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield prof
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(str(out / "trace.json"))
+
+
+class Timings:
+    """Collect stage-timing events into per-stage totals (for reports/tests)."""
+
+    def __init__(self, bus: EventBus = BUS):
+        self.totals: Dict[str, float] = {}
+        self.counts: Dict[str, int] = {}
+        self._unlisten = bus.listen("stage-timing", self._on)
+
+    def _on(self, payload):
+        s = payload["stage"]
+        self.totals[s] = self.totals.get(s, 0.0) + payload["seconds"]
+        self.counts[s] = self.counts.get(s, 0) + 1
+
+    def report(self) -> str:
+        lines = [f"{s}: {self.totals[s]*1000:.1f} ms over {self.counts[s]} call(s)"
+                 for s in sorted(self.totals, key=self.totals.get, reverse=True)]
+        return "\n".join(lines)
+
+    def close(self):
+        self._unlisten()
