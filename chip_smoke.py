@@ -186,6 +186,35 @@ Phases, each printed on its own lines; any failure exits non-zero:
      model must load), then ``cli models list`` and ``cli update`` (the
      index a local stand-in).
 
+ 15. a served session: ``WebServer`` over ``CrispyApp(bus=EventBus(),
+     data_root=<temp dir>)`` on loopback in this process, driven only over
+     HTTP as the page drives it: (a) the four pages byte-equal to the
+     port's ``webui`` files, and the refusals (foreign Host 403, foreign
+     Origin 403, /api without JSON 415, an unknown command 404, bad kwargs
+     400); (b) whisper-small at its published widths (random weights from
+     seed 0, written by ``write_ggml`` as the catalog's ``ggml-small.bin``)
+     selected with ``set_active_model``, diarization on by
+     ``set_app_setting``; (c) an ``/events`` client on its own thread,
+     ``start_monitoring`` (rnnoise) on a registered speech-like device, a
+     recording of 30 s of the device's audio held at 0 LSB to a host replay
+     of the logged ring operations, listed by ``get_recordings`` and read
+     back through ``/stream`` whole and by three Range requests, byte-equal;
+     ``microphone-level`` and ``stage-timing`` events received; (d) the
+     phase-8 WAV through ``/upload``, then both files through
+     ``start_transcription`` while monitoring runs, monitoring restarted
+     during the upload's decode (a graph captured in a request thread while
+     the transcription thread launches work), the SSE progress fed into
+     ``TranscriptionProgressTracker`` (to 100%, never backwards), each
+     served transcript equal to ``run_transcription`` called directly on
+     the card, text and ``[Speaker N|start]`` tags; (e) ``push_block``'s
+     per-frame latency in the monitoring loop over the transcription window
+     (the median gated at 10 ms; p99, max, late frames and the UI's
+     ``stage-timing`` printed); (f) K1-K3's launches risen, K4-K6's and the
+     f32 K1's at zero, no thread of the session left but the SSE handlers,
+     peak device memory; (g) ``python -m crispy_tpu_torch.cli serve --port
+     0`` in a process of its own: its JSON line, ``GET /``,
+     ``/api/get_platform``, exit 0 after Ctrl-C.
+
 The Whisper, ASR, diarization and ONNX phases run no hand-written kernel
 (the JAX package's models and executor have no Pallas kernel), so they add
 no row to the kernels line. The training net's backward is autograd in
@@ -193,7 +222,7 @@ plain PyTorch (K1 is forward-only, and the JAX package trains through a
 plain scan); phase 14 runs K2 and K3 in its targets.
 
 Then one JSON line with every kernel's numbers (launches from phases 3, 4,
-9b and 14c), and as the last line
+9b, 14c and 15), and as the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``crispy_tpu``.
 """
 
@@ -317,6 +346,9 @@ TRAIN_GRAD_RTOL = 1e-4  # phase 14b: x each tensor's largest |g| (f32 vs f64 on 
 # port (reading 3e-4 dB; the port against the JAX package, whose HP stages
 # really differ, is held at 0.05 dB in tests/test_torch_training.py)
 SNR_CARD_TOL = 5e-3
+SERVE_WHISPER = "small"  # phase 15: the catalog's whisper-small at its published widths
+SERVE_RECORD_SECONDS = 30  # phase 15c: the recording's length
+SERVE_LOOP_SECONDS = 60  # phase 15: the monitored device's audio, looped
 PROBE_LAUNCHES = 5000  # launch-rate probe: in-place adds on one element, host clock
 STEP_PROBE_STEPS = 5  # training-step probe at phase 1 and [14c]
 
@@ -1002,12 +1034,14 @@ def monitoring_shape_lines(torch, pipeline, rk, ok, fk, params, dev, rng) -> Non
 
 class LoggedRing:
     """A recording ring that logs each operation with its length, in the
-    order the operations took effect, for the host replay of the mix."""
+    order the operations took effect, for the host replay of the mix (and,
+    given a ``pushed`` list, keeps each pushed block)."""
 
-    def __init__(self, ring, log, name, gate=None):
+    def __init__(self, ring, log, name, gate=None, pushed=None):
         import threading
 
         self.ring, self.log, self.name, self.gate = ring, log, name, gate
+        self.pushed = pushed
         self._lock = threading.Lock()
 
     def push(self, samples) -> None:
@@ -1016,6 +1050,8 @@ class LoggedRing:
         with self._lock:
             self.ring.push(samples)
             self.log.append((self.name, "push", int(np.asarray(samples).size)))
+            if self.pushed is not None:
+                self.pushed.append(np.array(samples, np.float32))
 
     def pop(self, n: int):
         with self._lock:
@@ -3415,6 +3451,458 @@ def cli_lines(data: Path) -> None:
         fail("[14f] the CLI's models list or update is wrong")
 
 
+class SseClient:
+    """A page's ``/events`` listener on its own thread, over a raw socket so
+    that ``close`` ends it at once: keeps (arrival time, event, payload) and
+    hands each event to ``on_event``."""
+
+    def __init__(self, port: int, on_event=None):
+        import socket
+        import threading
+
+        self.events: list = []
+        self.on_event = on_event
+        self._sock = socket.create_connection(("127.0.0.1", port), timeout=120)
+        self._sock.sendall(f"GET /events HTTP/1.1\r\nHost: 127.0.0.1:{port}\r\n\r\n".encode())
+        self._file = self._sock.makefile("rb")
+        status = self._file.readline().decode()
+        if " 200 " not in status:
+            fail(f"[15c] /events answered {status.strip()!r}")
+        while self._file.readline() not in (b"\r\n", b"\n", b""):
+            pass  # the headers
+        self.thread = threading.Thread(target=self._read, name="sse-client", daemon=True)
+        self.thread.start()
+
+    def _read(self) -> None:
+        event = None
+        try:
+            for raw in self._file:
+                line = raw.decode().strip()
+                if line.startswith("event:"):
+                    event = line[6:].strip()
+                elif line.startswith("data:") and event:
+                    payload = json.loads(line[5:])
+                    self.events.append((time.monotonic(), event, payload))
+                    if self.on_event is not None:
+                        self.on_event(event, payload)
+                    event = None
+        except (OSError, ValueError):
+            pass  # closed
+
+    def of(self, name: str) -> list:
+        return [(t, p) for t, e, p in list(self.events) if e == name]
+
+    def close(self) -> None:
+        import socket
+
+        with contextlib.suppress(OSError):
+            self._sock.shutdown(socket.SHUT_RDWR)
+        self._sock.close()
+        self.thread.join(timeout=10)
+
+
+def http(port: int, method: str, path: str, body=None, headers=None, timeout=600):
+    """(status, headers, body bytes) of one request to the served app, as the
+    page sends it: JSON bodies for /api."""
+    import urllib.error
+    import urllib.request
+
+    hdrs = dict(headers or {})
+    if isinstance(body, dict):
+        body = json.dumps(body).encode()
+        hdrs.setdefault("Content-Type", "application/json")
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body, method=method,
+                                 headers=hdrs)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.headers, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers, e.read()
+
+
+def api(port: int, name: str, **kwargs):
+    """POST /api/<name>: the reply, failing on any status but 200."""
+    status, _, body = http(port, "POST", f"/api/{name}", kwargs)
+    if status != 200:
+        fail(f"[15] /api/{name} answered {status}: {body[:300]!r}")
+    return json.loads(body)
+
+
+def phase_seconds(events, path: str) -> dict:
+    """Seconds in each transcription phase of ``path`` from a stream of
+    (time, event, payload): each phase until the next, the last until the
+    final status."""
+    marks = [(t, p["phase"]) for t, e, p in events
+             if e == "transcription-phase" and p["recording_path"] == path]
+    end = max(t for t, e, p in events
+              if e == "transcription-status" and p["recording_path"] == path)
+    return {ph: round(t1 - t0, 3) for (t0, ph), t1 in zip(marks, [t for t, _ in marks[1:]] + [end])}
+
+
+def served_session(torch, card: str, kernels: dict, upload_src: Path) -> dict:
+    """Phase 15: the app served on loopback by ``WebServer`` in this process
+    and driven only over HTTP, as the page drives it; returns the kernels'
+    launches of the session."""
+    import threading
+    import urllib.parse
+
+    from crispy_tpu_torch.api import ui_state
+    from crispy_tpu_torch.api.commands import CrispyApp
+    from crispy_tpu_torch.api.events import EventBus
+    from crispy_tpu_torch.api.web_server import WEBUI_DIR, WebServer
+    from crispy_tpu_torch.dsp.rnnoise.graphed import GraphedBlockStep
+    from crispy_tpu_torch.engine import monitoring, recording
+    from crispy_tpu_torch.engine import transcription as tr
+    from crispy_tpu_torch.engine.denoiser import RnnNoiseProcessor
+    from crispy_tpu_torch.io import wav as wavio
+    from crispy_tpu_torch.models.registry import ModelManager
+    from crispy_tpu_torch.models.whisper import CONFIGS
+    from crispy_tpu_torch.models.whisper.ggml_io import write_ggml
+    from crispy_tpu_torch.models.whisper.weights import init_random
+
+    t_phase = time.perf_counter()
+    threads0 = set(threading.enumerate())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    data = Path(tempfile.mkdtemp(prefix="crispy-served-"))
+    os.environ["CRISPY_DATA_DIR"] = str(data)  # paths read it; set before the app and server
+    app = CrispyApp(bus=EventBus(), data_root=data)  # default device: the card
+    # the recording rings, logged for the host replay; the monitor's tap binds
+    # the mic ring's push when the engine is built, at the first start_monitoring
+    log: list = []
+    mic_pushed: list = []
+    st = app.recording_state
+
+    st.mic_ring = LoggedRing(st.mic_ring, log, "mic", pushed=mic_pushed)
+    st.app_ring = LoggedRing(st.app_ring, log, "app")
+    # the monitored device: speech-like audio at 48 kHz, looped
+    loop = speechlike(SERVE_LOOP_SECONDS * 48000, np.random.default_rng(SEED + 15), 125.0)
+    feed = {"i": 0}
+
+    def device_fn(k):
+        i = feed["i"] % loop.size
+        feed["i"] += k
+        out = loop[i: i + k]
+        return out if out.size == k else np.concatenate([out, loop[: k - out.size]])
+
+    app.device_registry.register(monitoring.InputDevice("speech", device_fn, 48000.0))
+    # per-frame latency read from the monitoring loop, as [9c] reads push_block,
+    # and each graph capture with its thread
+    frames: list = []
+    captures: list = []
+    push0, capture0 = RnnNoiseProcessor.push_block, GraphedBlockStep._capture
+
+    def timed_push(self, block):
+        t0 = time.perf_counter()
+        out = push0(self, block)
+        frames.append((time.monotonic(), (time.perf_counter() - t0) * 1e3))
+        return out
+
+    def logged_capture(self, fused):
+        t0 = time.monotonic()
+        capture0(self, fused)
+        captures.append((t0, time.monotonic(), threading.current_thread().name))
+
+    RnnNoiseProcessor.push_block, GraphedBlockStep._capture = timed_push, logged_capture
+    srv = WebServer(app, port=0).start()
+    port = srv.port
+    sse = None
+    try:
+        # --- 15a: pages and the boundary -----------------------------------------
+        t0 = time.perf_counter()
+        pages = {}
+        for route, name in (("/", "index.html"), ("/tray", "tray.html"),
+                            ("/result?path=" + urllib.parse.quote(str(upload_src)), "result.html"),
+                            ("/shared.js", "shared.js")):
+            status, _, body = http(port, "GET", route)
+            pages[route.split("?")[0]] = (status, body == (WEBUI_DIR / name).read_bytes(),
+                                          len(body))
+        refusals = {
+            "foreign Host": http(port, "POST", "/api/get_platform", {},
+                                 {"Host": "evil.example:80"})[0],
+            "foreign Origin": http(port, "POST", "/api/get_platform", {},
+                                   {"Origin": "http://evil.example"})[0],
+            "no JSON": http(port, "POST", "/api/get_platform", b"{}",
+                            {"Content-Type": "text/plain"})[0],
+            "unknown command": http(port, "POST", "/api/quit_app", {})[0],
+            "bad kwargs": http(port, "POST", "/api/set_active_model", {"bogus_kw": 1})[0]}
+        want = {"foreign Host": 403, "foreign Origin": 403, "no JSON": 415,
+                "unknown command": 404, "bad kwargs": 400}
+        print(f"[15a] WebServer on 127.0.0.1:{port}: pages (status, bytes equal to the webui "
+              f"file, size) {pages}; refusals {refusals} ({time.perf_counter() - t0:.2f} s)")
+        if any(s != 200 or not eq for s, eq, _ in pages.values()) or refusals != want:
+            fail("[15a] a page or a refusal is wrong")
+
+        # --- 15b: the model in place, selected over /api ---------------------------
+        t0 = time.perf_counter()
+        cfg = CONFIGS[SERVE_WHISPER]
+        models = data / "Models"
+        models.mkdir(parents=True, exist_ok=True)
+        ggml = write_ggml(models / f"ggml-{SERVE_WHISPER}.bin", init_random(cfg, seed=0),
+                          cfg, ttype=1)
+        t_write = time.perf_counter() - t0
+        api(port, "set_active_model", model_id=SERVE_WHISPER)
+        api(port, "set_app_setting", key="diarization_enabled", value="true")
+        info = api(port, "get_model_info", model_id=SERVE_WHISPER)
+        settings = api(port, "get_app_settings")
+        current = api(port, "get_current_model")
+        print(f"[15b] whisper-{SERVE_WHISPER} at its published widths (d={cfg.n_audio_state}, "
+              f"{cfg.n_audio_layer}+{cfg.n_text_layer} layers), random weights from seed 0, "
+              f"written as {ggml.name} ({ggml.stat().st_size / 1e6:.1f} MB) in {t_write:.1f} s; "
+              f"/api: current model {current!r}, downloaded {info.get('is_downloaded')}, "
+              f"diarization_enabled {settings['diarization_enabled']!r}")
+        if current != SERVE_WHISPER or not info.get("is_downloaded") or \
+                settings["diarization_enabled"] != "true":
+            fail("[15b] the model or the setting did not take")
+
+        # --- 15c: monitoring and recording -----------------------------------------
+        ui_bus = EventBus()  # the page's side: SSE events into the UI's tracker
+        tracker = ui_state.TranscriptionProgressTracker(bus=ui_bus)
+        seen: dict = {}
+        transcribing = threading.Event()
+
+        def on_event(name, payload):
+            if name.startswith("transcription-"):
+                ui_bus.emit(name, payload)
+                path = payload.get("recording_path")
+                if name == "transcription-progress":
+                    seen.setdefault(path, []).append(tracker.get(path)["progress"])
+                if name == "transcription-phase" and payload.get("phase") == "transcribing":
+                    transcribing.set()
+
+        sse = SseClient(port, on_event)
+        for k, attr in kernels.values():
+            setattr(k, attr, 0)
+        t0 = time.perf_counter()
+        api(port, "start_monitoring", device_name="speech", model_name="rnnoise")
+        t_first = time.perf_counter() - t0
+        time.sleep(1.0)
+        rec_path = api(port, "start_recording")
+        t_rec, fed0 = time.monotonic(), feed["i"]
+        while feed["i"] - fed0 < SERVE_RECORD_SECONDS * 48000:  # the device's audio, not wall
+            time.sleep(0.01)
+        out_path = api(port, "stop_recording")
+        rec_wall = time.monotonic() - t_rec
+        fed = (feed["i"] - fed0) / 48000
+        n_log = len(log)
+        listed = api(port, "get_recordings")
+        if out_path != rec_path or [r["path"] for r in listed] != [out_path]:
+            fail(f"[15c] get_recordings lists {listed} for {out_path}")
+        disk = Path(out_path).read_bytes()
+        q = urllib.parse.quote(out_path)
+        size = len(disk)
+        reads = {}
+        for label, rng, want in (("whole", None, disk), ("standard", "bytes=0-4095", disk[:4096]),
+                                 ("open-ended", f"bytes={size // 2}-", disk[size // 2:]),
+                                 ("suffix", "bytes=-48000", disk[-48000:])):
+            status, h, body = http(port, "GET", f"/stream?path={q}",
+                                   headers={"Range": rng} if rng else None)
+            reads[label] = (status, h.get("Content-Range"), body == want)
+        # the host replay of the mix, from the mic ring's clear at the start
+        clear = next(i for i, (nm, op, _) in enumerate(log) if nm == "mic" and op == "clear")
+        ops = log[clear:n_log]
+        first_push = sum(1 for nm, op, _ in log[:clear] if nm == "mic" and op == "push")
+        n_push = sum(1 for nm, op, _ in ops if nm == "mic" and op == "push")
+        mic = np.concatenate(mic_pushed[first_push: first_push + n_push])
+        expect = replay_mix(ops, mic, np.zeros(mic.size + 1, np.float32), recording.MIX_FRAME,
+                            recording.RING_CAPACITY)
+        rec_audio, rec_sr = wavio.read_wav(Path(out_path))
+        exp16 = np.trunc(np.clip(expect, -1.0, 1.0) * 32767.0)
+        got16 = np.round(rec_audio * 32768.0)
+        lsb = int(np.abs(got16[:, 0] - exp16).max()) if got16.shape[0] == exp16.size else None
+        levels = sse.of("microphone-level")
+        timing = [(t, p) for t, p in sse.of("stage-timing") if p.get("stage") == "ns-block"]
+        meters = [ui_state.level_meter(p) for _, p in levels]
+        print(f"[15c] /api start_monitoring (the card's first use in a request thread: engine, "
+              f"graph capture) {t_first:.2f} s; recording {Path(out_path).name} over "
+              f"{rec_wall:.2f} s of wall ({fed:.2f} s of the device's audio: the loop's pacing "
+              f"{fed / rec_wall:.4f}x realtime): {rec_audio.shape[0]} frames at {rec_sr} Hz, "
+              f"host replay of the mix from {len(ops)} logged ring operations: max {lsb} LSB "
+              f"(tol 0); L == R: "
+              f"{bool(np.array_equal(rec_audio[:, 0], rec_audio[:, 1]))}; /stream reads "
+              f"(status, Content-Range, bytes equal) {reads}; SSE so far: {len(levels)} "
+              f"microphone-level (level_meter in [{min(meters, default=0):.3f}, "
+              f"{max(meters, default=0):.3f}]), {len(timing)} stage-timing")
+        if lsb != 0 or not np.array_equal(rec_audio[:, 0], rec_audio[:, 1]) or \
+                rec_audio.shape[0] < (SERVE_RECORD_SECONDS - 0.1) * 48000:
+            fail(f"[15c] the recording is not the replay of the mix: {lsb} LSB, "
+                 f"{got16.shape[0]} frames for {exp16.size}")
+        if any(s != (200 if lbl == "whole" else 206) or not eq
+               for lbl, (s, _, eq) in reads.items()):
+            fail(f"[15c] a /stream read is wrong: {reads}")
+        if not levels or not timing or not all(0.0 <= m <= 1.0 for m in meters):
+            fail("[15c] the SSE client missed microphone-level or stage-timing events")
+
+        # --- 15d: upload and transcription under monitoring ------------------------
+        t0 = time.perf_counter()
+        status, _, body = http(port, "POST", "/upload?name=" + urllib.parse.quote(
+            upload_src.name), upload_src.read_bytes(), {"Content-Type": "application/octet-stream"})
+        t_upload = time.perf_counter() - t0
+        if status != 200:
+            fail(f"[15d] /upload answered {status}: {body[:200]!r}")
+        uploaded = json.loads(body)["path"]
+        if Path(uploaded).read_bytes() != upload_src.read_bytes():
+            fail("[15d] the uploaded file differs from the source")
+        walls = {}
+        t_win0 = time.monotonic()
+        for path in (uploaded, out_path):
+            transcribing.clear()
+            t0 = time.perf_counter()
+            if api(port, "start_transcription", recording_path=path) != {"started": True}:
+                fail("[15d] start_transcription did not start a thread")
+            if path == uploaded:  # restart monitoring while the decode runs
+                if not transcribing.wait(timeout=300):
+                    fail("[15d] the upload's transcription never reached its decode")
+                api(port, "stop_monitoring")
+                api(port, "start_monitoring", device_name="speech", model_name="rnnoise")
+            deadline = time.time() + 600
+            while True:
+                state = api(port, "get_transcription_state", recording_path=path)
+                if state and state["status"] in ("completed", "error", "cancelled"):
+                    break
+                if time.time() > deadline:
+                    fail(f"[15d] the transcription of {path} did not end: {state}")
+                time.sleep(0.05)
+            walls[path] = time.perf_counter() - t0
+            if state["status"] != "completed":
+                fail(f"[15d] the transcription of {path} ended {state}")
+        t_win1 = time.monotonic()
+        time.sleep(0.5)  # the last SSE events
+        served = {p: api(port, "get_transcription_result", recording_path=p)
+                  for p in (uploaded, out_path)}
+        statuses = {p: [x["status"] for _, x in sse.of("transcription-status")
+                        if x["recording_path"] == p] for p in served}
+        tracked = {p: tracker.get(p) for p in served}
+
+        # --- 15e: frame latency over the transcription window ----------------------
+        win = [ms for t, ms in frames if t_win0 <= t <= t_win1]
+        win_max = [p["max_ms"] for t, p in sse.of("stage-timing")
+                   if p.get("stage") == "ns-block" and t_win0 <= t <= t_win1 + 1.0]
+        late = sum(1 for ms in win if ms > 10.0)
+        recap = [c for c in captures if c[0] > captures[0][0]]
+
+        # --- 15f: kernels and teardown ---------------------------------------------
+        api(port, "stop_monitoring")
+        launches = {name: getattr(k, attr) for name, (k, attr) in kernels.items()}
+    finally:
+        RnnNoiseProcessor.push_block, GraphedBlockStep._capture = push0, capture0
+        if sse is not None:
+            sse.close()
+        srv.stop()
+    peak = (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 30
+
+    # the direct path: run_transcription on the card with the same model and
+    # diarization setting the app passed
+    diar = {"enabled": True, "max_speakers": int(settings["diarization_max_speakers"] or 6),
+            "merge_gap": float(settings["diarization_merge_gap"] or 2.5)}
+    tm = tr.TranscriptionManager(ModelManager(models_dir=models), bus=EventBus())
+    direct_events: list = []
+    for name in ("transcription-phase", "transcription-status"):
+        tm.bus.listen(name, lambda x, n=name: direct_events.append((time.monotonic(), n, x)))
+    direct, direct_wall = {}, {}
+    for p in served:
+        t0 = time.perf_counter()
+        direct[p] = tr.run_transcription(p, tm, SERVE_WHISPER, diarization=diar)
+        torch.cuda.synchronize()
+        direct_wall[p] = time.perf_counter() - t0
+    for p in served:
+        tags = [(s["speaker"], s["timestamp"]) for s in ui_state.parse_transcript_segments(
+            served[p] or "")]
+        dtags = [(s["speaker"], s["timestamp"]) for s in ui_state.parse_transcript_segments(
+            direct[p] or "")]
+        print(f"[15d] {Path(p).parent.name}/{Path(p).name}: served wall {walls[p]:.2f} s "
+              f"(request to completed), {len(served[p] or '')} characters, speaker tags "
+              f"{len(tags)} ({sorted(set(t for t, _ in tags))}); statuses over SSE "
+              f"{statuses[p]}, the tracker's progress {seen.get(p)} -> {tracked[p]}; direct "
+              f"run_transcription on the card {direct_wall[p]:.2f} s (served/direct "
+              f"{walls[p] / direct_wall[p]:.3f}): text equal "
+              f"{served[p] == direct[p]}, tags equal {tags == dtags}; seconds a phase, served "
+              f"(SSE arrival) {phase_seconds(sse.events, p)}, direct "
+              f"{phase_seconds(direct_events, p)}")
+        prog = seen.get(p) or []
+        if served[p] != direct[p] or tags != dtags or not served[p] or \
+                (p == uploaded and not tags):
+            fail(f"[15d] the served transcript of {p} differs from the direct run")
+        if not prog or prog != sorted(prog) or prog[-1] != 1.0 or \
+                tracked[p]["status"] != "completed" or tracked[p]["progress"] != 1.0:
+            fail(f"[15d] the tracker's progress of {p} did not reach 100%: {prog}, {tracked[p]}")
+    t_dec = min(t for t, x in sse.of("transcription-phase")
+                if x["recording_path"] == uploaded and x["phase"] == "transcribing")
+    t_done = min(t for t, x in sse.of("transcription-status")
+                 if x["recording_path"] == uploaded and x["status"] == "completed")
+    print(f"[15d] upload of {upload_src.stat().st_size / 1e6:.1f} MB in {t_upload:.2f} s; graph "
+          f"captures (start, end, thread; s from the first start_transcription) "
+          f"{[(round(a - t_win0, 3), round(b - t_win0, 3), n) for a, b, n in captures]}; the "
+          f"upload's decode from {t_dec - t_win0:.3f} to {t_done - t_win0:.3f} s")
+    if not recap or not any(t_dec <= a and b <= t_done and "process_request_thread" in n
+                            for a, b, n in recap):
+        fail("[15d] no graph was captured in a request thread during the upload's decode")
+    med = float(np.median(win)) if win else float("inf")
+    print(f"[15e] push_block in the monitoring loop over the transcription window "
+          f"({t_win1 - t_win0:.2f} s): {percentiles(win)}, {late} frames over the 10 ms budget; "
+          f"stage-timing max_ms a second as the UI sees it: {win_max} [{card}]")
+    if not med <= 10.0:
+        fail(f"[15e] the per-frame median {med:.3f} ms under transcription exceeds 10 ms")
+
+    print(f"[15f] launches in [15]: {launches}; peak device memory {peak:.3f} GiB above the "
+          f"phase's start")
+    for name, c in launches.items():
+        if (c > 0) != (name in ("nn_scan", "rd_scan", "pitch_window_gather")):
+            fail(f"[15f] kernel {name}: {c} launches in the served session")
+    deadline = time.time() + 5
+    while True:  # the server's own thread ends just after stop() returns
+        left = [t for t in set(threading.enumerate()) - threads0
+                if not (t.daemon and "process_request_thread" in t.name)]
+        if not left or time.time() > deadline:
+            break
+        time.sleep(0.05)
+    print(f"[15f] threads of the session left: {sorted(t.name for t in left)} (SSE handlers "
+          f"excepted)")
+    if left:
+        fail(f"[15f] threads left after teardown: {left}")
+    shutil.rmtree(data, ignore_errors=True)
+    print(f"[15] 15a-f took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def serve_cli_line() -> None:
+    """Phase 15g: ``cli serve`` in a process of its own, stopped by Ctrl-C."""
+    import signal
+    import threading
+
+    with tempfile.TemporaryDirectory() as data:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "crispy_tpu_torch.cli", "serve",
+                                 "--port", "0"], cwd=ROOT,
+                                env={**os.environ, "CRISPY_DATA_DIR": data},
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            line: list = []
+            reader = threading.Thread(target=lambda: line.append(proc.stdout.readline()),
+                                      daemon=True)
+            reader.start()
+            reader.join(timeout=120)
+            if not line or not line[0]:
+                fail(f"[15g] cli serve printed nothing (exit {proc.poll()})")
+            info = json.loads(line[0])
+            port = int(info["url"].rsplit(":", 1)[1].strip("/"))
+            status, _, page = http(port, "GET", "/")
+            platform = api(port, "get_platform")
+            proc.send_signal(signal.SIGINT)
+            rc = proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        err = proc.stderr.read()
+        print(f"[15g] python -m crispy_tpu_torch.cli serve --port 0: {info}; GET / {status} "
+              f"({len(page)} bytes), /api/get_platform {platform!r}; exit {rc} after Ctrl-C "
+              f"({time.perf_counter() - t0:.1f} s)")
+        if status != 200 or rc != 0 or info["recordings"] != str(Path(data) / "Recordings"):
+            fail(f"[15g] cli serve failed: {err[-2000:]}")
+
+
 def main() -> int:
     # The run uses one card: show torch only the first visible one, so the
     # count it reports is the count it used.
@@ -3607,7 +4095,7 @@ def main() -> int:
 
     # --- 6 to 8: Whisper transcription ---------------------------------------
     wrng = np.random.default_rng(SEED + 2)
-    whisper_files = contextlib.ExitStack()  # the ggml file and the phase-8 WAV, for phase 11c
+    whisper_files = contextlib.ExitStack()  # the ggml file and the phase-8 WAV (11c, 12, 15)
     tmp = whisper_files.enter_context(tempfile.TemporaryDirectory())
     with tempfile.TemporaryDirectory() as data:
         os.environ["CRISPY_DATA_DIR"] = data  # sidecars stay out of HOME
@@ -3654,12 +4142,11 @@ def main() -> int:
 
     # --- 11: speaker diarization; 12: the ONNX executor ------------------------
     t0 = time.perf_counter()
-    with whisper_files:
-        diarization_phase(torch, dev, card, e2e_wav, e2e_manager)
-        print(f"[11] phase 11 took {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        onnx_phase(torch, card, e2e_wav)
-        print(f"[12] phase 12 took {time.perf_counter() - t0:.1f} s")
+    diarization_phase(torch, dev, card, e2e_wav, e2e_manager)
+    print(f"[11] phase 11 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    onnx_phase(torch, card, e2e_wav)
+    print(f"[12] phase 12 took {time.perf_counter() - t0:.1f} s")
 
     # --- 13: the ONNX enc-dec bundles and the executor's diarization nets ------
     t0 = time.perf_counter()
@@ -3672,6 +4159,15 @@ def main() -> int:
     for name, c in train_launches.items():
         launches[name] += c
     print(f"[14] phase 14 took {time.perf_counter() - t0:.1f} s")
+
+    # --- 15: the served session ----------------------------------------------
+    t0 = time.perf_counter()
+    serve_launches = served_session(torch, card, kernels, e2e_wav)
+    for name, c in serve_launches.items():
+        launches[name] += c
+    serve_cli_line()
+    whisper_files.close()
+    print(f"[15] phase 15 took {time.perf_counter() - t0:.1f} s")
 
     for r in rows:
         r["launches"] = launches[r["name"]]

@@ -25,6 +25,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 from typing import List, Optional
 
@@ -50,6 +51,9 @@ _SIGNATURES = {
 }
 
 _LIB: Optional[ctypes.CDLL] = None
+# First uses may race (request threads of the web server): one builds and
+# binds, the others wait and take its library.
+_LOAD_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -118,12 +122,14 @@ def load() -> ctypes.CDLL:
     """The kernel library, built on first use and loaded once per process."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _LIB = lib
+        with _LOAD_LOCK:
+            if _LIB is None:
+                lib = ctypes.CDLL(str(build()))
+                for name, argtypes in _SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                _LIB = lib
     return _LIB
 
 

@@ -16,6 +16,8 @@
                                                           selection, bundle checks
   python -m crispy_tpu_torch.cli convert IN.mp4          any media file -> 48 kHz WAV
   python -m crispy_tpu_torch.cli update                  newer release on the index?
+  python -m crispy_tpu_torch.cli serve [--port P]        the web UI over /api, /events,
+                                                          /stream on loopback
 
 ``CRISPY_FUSED_SPECTRA=on`` runs denoise and bench through the
 fused-spectra kernels (K4-K6) in place of the FFTs. ``transcribe`` loads
@@ -33,6 +35,11 @@ denoise, bench, resample, transcribe and ``models validate`` run on the CUDA
 card by default and fail without one; ``--device cpu`` runs the plain PyTorch
 path instead. ``models list|download|set|delete|inspect``, ``convert`` and
 ``update`` need no card.
+
+``serve`` prints ``{"url": ..., "recordings": ...}`` and serves the app until
+interrupted (Ctrl-C). Its device-free commands answer on any host; a command
+that needs an engine (monitoring, transcription) runs on the card and answers
+500 with the error where there is none.
 """
 
 from __future__ import annotations
@@ -313,6 +320,23 @@ def _cmd_update(args) -> int:
     return 0
 
 
+def _cmd_serve(args) -> int:
+    from .api.commands import CrispyApp
+    from .api.web_server import WebServer
+
+    app = CrispyApp()
+    srv = WebServer(app, port=args.port).start()
+    print(json.dumps({"url": srv.url,
+                      "recordings": app.get_recordings_dir_path()}))
+    sys.stdout.flush()
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        srv.stop()
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="crispy_tpu_torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -377,6 +401,13 @@ def main(argv=None) -> int:
     upd = sub.add_parser(
         "update", help="check the package index for a newer crispy-tpu release")
     upd.set_defaults(fn=_cmd_update)
+
+    s = sub.add_parser(
+        "serve",
+        help="launch the web UI (monitoring, recordings, models, "
+             "transcription, diarization, chat) over /api + SSE /events")
+    s.add_argument("--port", type=int, default=0)
+    s.set_defaults(fn=_cmd_serve)
 
     args = p.parse_args(argv)
     return args.fn(args)
