@@ -175,13 +175,13 @@ Phases, each printed on its own lines; any failure exits non-zero:
      with equal pitch index, gains on bands above digital silence, the mask,
      pitch indices that differ counted); (b) the masked loss and its
      gradients at train_model's init on that batch, card vs CPU; (c)
-     ``train_model`` in corpus mode, 256 corpus streams, 200 steps, 25 a
+     ``train_model`` in corpus mode, 256 corpus streams, 100 steps, 25 a
      call: each call's wall, ms a step, peak memory, the loss curve (finite,
      falling), K2 and K3 once a step and no other kernel, then one more
      step under torch.profiler (launches a step, the device's busy share);
      (d) five host-mode steps with ``synth_batch``'s share; (e) the held-out
      SNR gain of the packaged model, card vs CPU (K1-K3 launched), and of
-     the 200-step model; (f) ``python -m crispy_tpu_torch.tools.train_rnnoise
+     the 100-step model; (f) ``python -m crispy_tpu_torch.tools.train_rnnoise
      --steps 50 --corpus-streams 64`` in a process of its own (the saved
      model must load), then ``cli models list`` and ``cli update`` (the
      index a local stand-in).
@@ -199,7 +199,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
      recording of 30 s of the device's audio held at 0 LSB to a host replay
      of the logged ring operations, listed by ``get_recordings`` and read
      back through ``/stream`` whole and by three Range requests, byte-equal;
-     ``microphone-level`` and ``stage-timing`` events received; (d) the
+     ``microphone-level`` and ``stage-timing`` events received, the loop's
+     pacing of the device at least 0.99x realtime; (d) the
      phase-8 WAV through ``/upload``, then both files through
      ``start_transcription`` while monitoring runs, monitoring restarted
      during the upload's decode (a graph captured in a request thread while
@@ -215,6 +216,31 @@ Phases, each printed on its own lines; any failure exits non-zero:
      0`` in a process of its own: its JSON line, ``GET /``,
      ``/api/get_platform``, exit 0 after Ctrl-C.
 
+ 16. one process over a list of devices, the mesh made of entries of the
+     one card (``parallel.make_mesh(devices=["cuda:0"] * n)``; every wall
+     time printed beside the unsharded call's is that of repeated entries
+     of one card, not a multi-GPU speed-up): (a) ``denoise_batch`` at
+     S=128 x F=500, 4 blocks a stream, on both spectra paths, unsharded and
+     over dp=2 and dp=3 (S pads to 129), held to the unsharded output at
+     1.5e-4, pitch indices that differ counted, K1-K3's launches (and
+     K4-K6's on the fused path) exactly dp x blocks; (b) whisper-base (the
+     phase-6 file) through ``TranscriptionManager(mesh=(2, 2))`` and
+     ``run_transcription`` of the phase-8 WAV, its text equal to phase 8's,
+     teacher-forced logits of one B=8 batch within 1e-4 of the unsharded
+     model's, and the (2, 2) placement's device memory beside the model's
+     (repeated entries share one copy); (c) the phase-12a 0.6b int8 bundle,
+     B=8 x 30 s, through ``load_engine(mesh=...)`` at dp=2 and dp=3:
+     transcripts equal to the unsharded engine's, every
+     DynamicQuantizeLinear scale of the encoder within 1e-5 of the
+     unsharded one on each shard; (d) the phase-11 hour over dp=2: the
+     built-in route's segments, margins and chunk statistics bit-equal and
+     NME-SC labels equal,
+     and the PyanNet + CAM++ ``from_device`` route (staged, [11b]'s nets)
+     with equal speakers; (e) ``CrispyApp``: no mesh with ``CRISPY_MESH``
+     unset on one card, and over ``make_mesh(["cuda:0"] * 2)``
+     ``start_transcription`` with diarization of the phase-8 WAV equal to
+     the unsharded app's.
+
 The Whisper, ASR, diarization and ONNX phases run no hand-written kernel
 (the JAX package's models and executor have no Pallas kernel), so they add
 no row to the kernels line. The training net's backward is autograd in
@@ -222,7 +248,7 @@ plain PyTorch (K1 is forward-only, and the JAX package trains through a
 plain scan); phase 14 runs K2 and K3 in its targets.
 
 Then one JSON line with every kernel's numbers (launches from phases 3, 4,
-9b, 14c and 15), and as the last line
+9b, 14c, 15 and 16a), and as the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``crispy_tpu``.
 """
 
@@ -314,7 +340,7 @@ ENC_INT8_RTOL = 5e-2
 INT8_TIE_RTOL = 1e-2
 
 ENCDEC_BATCHES = (8, 16)  # phase 13a: 30 s chunks a batch through the canary ONNX bundle
-ENCDEC_RUNS = 3
+ENCDEC_RUNS = 2  # phase 13a: timed calls a bucket
 ENCDEC_CHECK_NEW = 48  # phase 13a: tokens a row in the card-vs-CPU decodes (2 x 10 s)
 ENCDEC_PROFILE_STEPS = 8  # phase 13a: decode steps under torch.profiler (its trace of
 #   ~2,300 launches a step takes seconds a step to read back)
@@ -324,7 +350,7 @@ DRILL_TIMEOUT = 900  # phase 13c: seconds for the hour drill's process
 
 TRAIN_B, TRAIN_F = 32, 100  # phase 14: the training tool's defaults, the builtin net's widths
 TRAIN_CORPUS = 256  # phase 14c: corpus streams on the card
-TRAIN_STEPS, TRAIN_SPC = 200, 25  # phase 14c: steps, steps a call
+TRAIN_STEPS, TRAIN_SPC = 100, 25  # phase 14c: steps, steps a call
 TRAIN_PROFILE_STEPS = 1  # phase 14c: steps under torch.profiler (~20,600 launches a step to read back)
 TRAIN_HOST_STEPS = 5  # phase 14d
 TOOL_STEPS, TOOL_CORPUS = 50, 64  # phase 14f: the training tool in a process of its own
@@ -349,6 +375,7 @@ SNR_CARD_TOL = 5e-3
 SERVE_WHISPER = "small"  # phase 15: the catalog's whisper-small at its published widths
 SERVE_RECORD_SECONDS = 30  # phase 15c: the recording's length
 SERVE_LOOP_SECONDS = 60  # phase 15: the monitored device's audio, looped
+MON_PACE_MIN = 0.99  # phase 15c: the monitoring loop's pacing of the device, x realtime
 PROBE_LAUNCHES = 5000  # launch-rate probe: in-place adds on one element, host clock
 STEP_PROBE_STEPS = 5  # training-step probe at phase 1 and [14c]
 
@@ -872,7 +899,8 @@ def decode_phase(torch, dev, path: Path, rng, card: str) -> dict:
 
 def e2e_phase(torch, dev, path: Path, tmp: Path, rng, card: str):
     """Phase 8: run_transcription through load_engine on a 5 min 48 kHz WAV;
-    returns the WAV and its model manager (phase 11c reads them)."""
+    returns the WAV and its model manager (phases 11c and 16b read them),
+    the text and the wall time."""
     from crispy_tpu_torch.api.events import EventBus
     from crispy_tpu_torch.dsp.resample import resample_poly
     from crispy_tpu_torch.engine import transcription as tr
@@ -940,7 +968,7 @@ def e2e_phase(torch, dev, path: Path, tmp: Path, rng, card: str):
         fail(f"progress did not reach 1.0: {progress}")
     if not seen or any(kind != "Tensor" or not d.startswith("cuda") for kind, d, _ in seen):
         fail(f"a chunk batch was not a tensor on the card: {seen}")
-    return wav, StubManager()
+    return wav, StubManager(), text, wall
 
 
 def monitoring_shape_lines(torch, pipeline, rk, ok, fk, params, dev, rng) -> None:
@@ -2122,12 +2150,12 @@ class StagedSegmentation:
     def __init__(self, net, dd, st, stage: str = "segmentation forward"):
         self.net, self.dd, self.st, self.stage = net, dd, st, stage
 
-    def from_device(self, q):
+    def from_device(self, q, mesh=None):
         with self.st.time(self.stage):
-            real = self.net.from_device(q)
+            real = self.net.from_device(q, mesh=mesh)
         if not np.isfinite(real).all():
             fail("non-finite segmentation logits")
-        m = self.dd.segmentation_margins(q, int(q.shape[0]))
+        m = self.dd.segmentation_margins(q, int(q.shape[0]), mesh)
         ev = np.stack([-m, m], axis=-1)
         f = min(real.shape[1], ev.shape[1])
         return ev[:, :f] + 0.0 * real[:, :f, :2]
@@ -2140,17 +2168,17 @@ class StagedEmbedding:
     def __init__(self, net, dd, st, stage: str = "CAM++ forward"):
         self.net, self.dd, self.st, self.stage = net, dd, st, stage
 
-    def from_device(self, q, ranges):
+    def from_device(self, q, ranges, mesh=None):
         with self.st.time(self.stage):
-            real = self.net.from_device(q, ranges)
+            real = self.net.from_device(q, ranges, mesh=mesh)
         if not np.isfinite(real).all():
             fail("non-finite CAM++ embeddings")
-        stand = self.dd.chunk_stats(q, int(q.shape[0]), list(ranges))
+        stand = self.dd.chunk_stats(q, int(q.shape[0]), list(ranges), mesh)
         reps = -(-real.shape[1] // stand.shape[1])
         return np.tile(stand, (1, reps))[:, : real.shape[1]] + 0.0 * real
 
 
-def staged_hour(torch, td, dd, dev, audio, chunks, card: str) -> None:
+def staged_hour(torch, td, dd, dev, audio, chunks, card: str):
     """Phase 11b: PyanNet segmentation-3.0 and CAM++ wespeaker-voxceleb at
     their published widths (the JAX layout's init_random at seed 0 through
     the carry), card against CPU, then the hour through the from_device
@@ -2219,6 +2247,7 @@ def staged_hour(torch, td, dd, dev, audio, chunks, card: str) -> None:
           f"{walls_line(walls, seconds)}; peak device memory {peak:.3f} GB; {len(out)} speaker "
           f"segments [{card}]")
     print(f"[11b] stages by CUDA events, ms a call (mean of {DIAR_RUNS}): {stages} [{card}]")
+    return seg, cam
 
 
 def diarized_transcription(torch, td, wav: Path, manager, card: str) -> None:
@@ -2260,7 +2289,8 @@ def diarized_transcription(torch, td, wav: Path, manager, card: str) -> None:
         fail("the transcript's speaker segments differ from a separate diarize")
 
 
-def diarization_phase(torch, dev, card: str, wav: Path, manager) -> None:
+def diarization_phase(torch, dev, card: str, wav: Path, manager) -> dict:
+    """Phase 11; returns the hour and [11b]'s nets on the card (phase 16d)."""
     from crispy_tpu_torch.engine import diar_device as dd
     from crispy_tpu_torch.engine import diarization as td
     from crispy_tpu_torch.engine import nme_device as tn
@@ -2274,13 +2304,14 @@ def diarization_phase(torch, dev, card: str, wav: Path, manager) -> None:
         t1 = time.perf_counter()
         chunks = builtin_hour(torch, td, tn, dd, dev, audio, card)
         t2 = time.perf_counter()
-        staged_hour(torch, td, dd, dev, audio, chunks, card)
+        seg, cam = staged_hour(torch, td, dd, dev, audio, chunks, card)
         t3 = time.perf_counter()
     with tempfile.TemporaryDirectory() as data:
         os.environ["CRISPY_DATA_DIR"] = data  # sidecars stay out of HOME
         diarized_transcription(torch, td, wav, manager, card)
     print(f"[11] 11a, 11b, 11c took {t2 - t1:.1f}, {t3 - t2:.1f}, "
           f"{time.perf_counter() - t3:.1f} s")
+    return {"audio": audio, "seg": seg, "cam": cam}
 
 
 
@@ -2583,29 +2614,31 @@ def onnx_layouts(torch, rng) -> None:
           f"equal): {results}; graphs card vs CPU (outputs equal, shapes, device): {graphs}")
 
 
-def onnx_phase(torch, card: str, wav: Path) -> None:
+def onnx_phase(torch, card: str, wav: Path, keep: contextlib.ExitStack):
+    """Phase 12; the bundle's directory stays until ``keep`` closes, and the
+    card's engine is returned with its model manager and id (phase 16c)."""
     from crispy_tpu_torch.models.registry import ModelManager
 
     t0 = time.perf_counter()
     ties: list = []
     orng = np.random.default_rng(SEED + 6)
     mid = "parakeet-tdt-0.6b-v3"
-    with tempfile.TemporaryDirectory() as tmp:
-        with tempfile.TemporaryDirectory() as data:
-            os.environ["CRISPY_DATA_DIR"] = data  # sidecars stay out of HOME
-            mm = ModelManager(models_dir=Path(tmp) / "Models")
-            with torch.no_grad():
-                eng = onnx_fullwidth(torch, mm, orng, card, mid)
-                t1 = time.perf_counter()
-                onnx_card_vs_cpu(torch, mm, orng, mid, eng, ties)
-                t2 = time.perf_counter()
-                onnx_run_transcription(torch, mm, mid, eng, wav, card)
-                t3 = time.perf_counter()
-            del eng
-            onnx_layouts(torch, orng)
+    tmp = keep.enter_context(tempfile.TemporaryDirectory())
+    with tempfile.TemporaryDirectory() as data:
+        os.environ["CRISPY_DATA_DIR"] = data  # sidecars stay out of HOME
+        mm = ModelManager(models_dir=Path(tmp) / "Models")
+        with torch.no_grad():
+            eng = onnx_fullwidth(torch, mm, orng, card, mid)
+            t1 = time.perf_counter()
+            onnx_card_vs_cpu(torch, mm, orng, mid, eng, ties)
+            t2 = time.perf_counter()
+            onnx_run_transcription(torch, mm, mid, eng, wav, card)
+            t3 = time.perf_counter()
+        onnx_layouts(torch, orng)
     print(f"[12] decisions that differ card vs CPU at a near-tie: {len(ties)} {ties}; 12a, 12b, "
           f"12c, 12d took {t1 - t0:.1f}, {t2 - t1:.1f}, {t3 - t2:.1f}, "
           f"{time.perf_counter() - t3:.1f} s")
+    return mm, mid, eng
 
 
 # ---------------------------------------------------------------------------
@@ -3682,6 +3715,7 @@ def served_session(torch, card: str, kernels: dict, upload_src: Path) -> dict:
         t_rec, fed0 = time.monotonic(), feed["i"]
         while feed["i"] - fed0 < SERVE_RECORD_SECONDS * 48000:  # the device's audio, not wall
             time.sleep(0.01)
+        pace = (feed["i"] - fed0) / 48000 / (time.monotonic() - t_rec)
         out_path = api(port, "stop_recording")
         rec_wall = time.monotonic() - t_rec
         fed = (feed["i"] - fed0) / 48000
@@ -3716,8 +3750,9 @@ def served_session(torch, card: str, kernels: dict, upload_src: Path) -> dict:
         meters = [ui_state.level_meter(p) for _, p in levels]
         print(f"[15c] /api start_monitoring (the card's first use in a request thread: engine, "
               f"graph capture) {t_first:.2f} s; recording {Path(out_path).name} over "
-              f"{rec_wall:.2f} s of wall ({fed:.2f} s of the device's audio: the loop's pacing "
-              f"{fed / rec_wall:.4f}x realtime): {rec_audio.shape[0]} frames at {rec_sr} Hz, "
+              f"{rec_wall:.2f} s of wall ({fed:.2f} s of the device's audio; the loop's pacing "
+              f"{pace:.4f}x realtime until the 30 s were read, min {MON_PACE_MIN}): "
+              f"{rec_audio.shape[0]} frames at {rec_sr} Hz, "
               f"host replay of the mix from {len(ops)} logged ring operations: max {lsb} LSB "
               f"(tol 0); L == R: "
               f"{bool(np.array_equal(rec_audio[:, 0], rec_audio[:, 1]))}; /stream reads "
@@ -3731,6 +3766,8 @@ def served_session(torch, card: str, kernels: dict, upload_src: Path) -> dict:
         if any(s != (200 if lbl == "whole" else 206) or not eq
                for lbl, (s, _, eq) in reads.items()):
             fail(f"[15c] a /stream read is wrong: {reads}")
+        if not pace >= MON_PACE_MIN:
+            fail(f"[15c] the monitoring loop paced the device at {pace:.4f}x realtime")
         if not levels or not timing or not all(0.0 <= m <= 1.0 for m in meters):
             fail("[15c] the SSE client missed microphone-level or stage-timing events")
 
@@ -3901,6 +3938,314 @@ def serve_cli_line() -> None:
               f"({time.perf_counter() - t0:.1f} s)")
         if status != 200 or rc != 0 or info["recordings"] != str(Path(data) / "Recordings"):
             fail(f"[15g] cli serve failed: {err[-2000:]}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: one process over a list of devices (a mesh of the one card)
+# ---------------------------------------------------------------------------
+
+MESH_BLOCKS = 4  # phase 16a: blocks a stream through denoise_batch
+MESH_DP = (2, 3)  # data rows of the meshes of 16a and 16c (S=128 pads to 129 at 3)
+MESH_SCALE_RTOL = 1e-5  # 16c: DynamicQuantizeLinear scales sharded vs unsharded, relative
+MESH_NOTE = "repeated entries of one card, not a multi-GPU speed-up"
+
+
+def card_mesh(n: int, model_parallel=None):
+    from crispy_tpu_torch.parallel import make_mesh
+
+    return make_mesh(devices=["cuda:0"] * n, model_parallel=model_parallel)
+
+
+def pitch_calls(pipeline):
+    """Record every _pitch_index call's indices (a tensor on the card, read
+    after the run) while the block runs."""
+    calls, real = [], pipeline._pitch_index
+
+    def spy(*args, **kwargs):
+        out = real(*args, **kwargs)
+        calls.append(out[0])
+        return out
+
+    @contextlib.contextmanager
+    def ctx():
+        pipeline._pitch_index = spy
+        try:
+            yield calls
+        finally:
+            pipeline._pitch_index = real
+
+    return ctx()
+
+
+def stitch_pitch(calls, dp: int, S: int) -> np.ndarray:
+    """[S, frames] from the calls of a run: per block, dp shard calls in row
+    order."""
+    blocks = [np.concatenate([c.cpu().numpy() for c in calls[i:i + dp]])[:S]
+              for i in range(0, len(calls), dp)]
+    return np.concatenate(blocks, axis=1)
+
+
+def mesh_denoise(torch, pipeline, params, card: str, kernels: dict) -> dict:
+    """[16a] denoise_batch at S=128 x F=500, MESH_BLOCKS blocks a stream, on
+    both spectra paths, unsharded and over meshes of dp entries of the card."""
+    rng = np.random.default_rng(SEED + 16)
+    base = np.stack([speechlike(2 * F_MAIN * pipeline.FRAME, rng, 85.0 + 1.5 * s)
+                     for s in range(S_MAIN)])
+    audio = np.tile(base, (1, MESH_BLOCKS // 2))
+    total = {name: 0 for name in kernels}
+    for path, expect in (("off", ("nn_scan", "rd_scan", "pitch_window_gather")),
+                         ("on", ("nn_scan", "rd_scan", "pitch_window_gather",
+                                 "fwd_spectrum_bands", "win_spectrum_bands",
+                                 "inv_spectrum_ola"))):
+        with spectra_path(path):
+            pipeline.denoise_batch(audio[:, :F_MAIN * pipeline.FRAME], params=params)  # warm-up
+            torch.cuda.synchronize()
+            with pitch_calls(pipeline) as calls:
+                t0 = time.perf_counter()
+                want = pipeline.denoise_batch(audio, params=params)
+                wall0 = time.perf_counter() - t0
+                p_want = stitch_pitch(calls, 1, S_MAIN)
+            for dp in MESH_DP:
+                mesh = card_mesh(dp, model_parallel=1)
+                for k, attr in kernels.values():
+                    setattr(k, attr, 0)
+                with pitch_calls(pipeline) as calls:
+                    t0 = time.perf_counter()
+                    got = pipeline.denoise_batch(audio, params=params, mesh=mesh)
+                    wall = time.perf_counter() - t0
+                    counts = {name: getattr(k, attr) for name, (k, attr) in kernels.items()}
+                    p_got = stitch_pitch(calls, dp, S_MAIN)
+                err = float(np.abs(got - want).max())
+                n_diff = int(np.sum(p_got != p_want))
+                print(f"[16a] {'fused-spectra' if path == 'on' else 'FFT'} path, "
+                      f"S={S_MAIN} F={F_MAIN} x {MESH_BLOCKS} blocks over dp={dp} "
+                      f"(S pads to {-(-S_MAIN // dp) * dp}): max|diff| vs unsharded {err:.3e} "
+                      f"(tol {F32_TOL}), pitch indices differing {n_diff} of {p_want.size}; "
+                      f"launches {counts}; wall {wall:.3f} s, unsharded {wall0:.3f} s "
+                      f"({MESH_NOTE}) [{card}]")
+                if got.shape != audio.shape or not np.isfinite(got).all() or not err <= F32_TOL:
+                    fail(f"[16a] dp={dp} differs from the unsharded run by {err}")
+                for name, c in counts.items():
+                    want_c = dp * MESH_BLOCKS if name in expect else 0
+                    if c != want_c:
+                        fail(f"[16a] {name}: {c} launches, want {want_c}")
+                    total[name] += c
+    if torch.cuda.current_device() != 0:
+        fail("[16a] a launch moved the calling thread's current device")
+    print("[16a] the launchers restore the caller's current device (csrc/device_guard.cuh): "
+          "unverified here, one card cannot show a move")
+    return total
+
+
+def mesh_whisper(torch, card: str, ggml: Path, wav: Path, manager, want_text: str,
+                 wall0: float) -> None:
+    """[16b] whisper-base at its published widths over a (2, 2) mesh of the
+    card: run_transcription of the phase-8 WAV, and teacher-forced logits
+    on one B=8 batch."""
+    from crispy_tpu_torch.api.events import EventBus
+    from crispy_tpu_torch.engine import transcription as tr
+    from crispy_tpu_torch.models.whisper import WhisperModel
+
+    mesh = card_mesh(4)
+    tm = tr.TranscriptionManager(manager, bus=EventBus(), mesh=mesh)
+    tr.clear_transcription_progress(str(wav))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    text = tr.run_transcription(str(wav), tm, manager.info.id)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"[16b] run_transcription of the {E2E_SECONDS} s phase-8 WAV through "
+          f"TranscriptionManager(mesh={mesh.devices.shape}): {len(text or '')} characters, equal "
+          f"to the unsharded call's: {text == want_text}; wall {wall:.3f} s (model load "
+          f"included), unsharded {wall0:.3f} s ({MESH_NOTE}) [{card}]")
+    if not text or text != want_text:
+        fail("[16b] the sharded transcript differs from the unsharded one")
+    plain = WhisperModel.from_ggml(ggml)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    sharded = WhisperModel.from_ggml(ggml)
+    torch.cuda.synchronize()
+    one = torch.cuda.memory_allocated() - before
+    sharded.shard_to(mesh)
+    torch.cuda.synchronize()
+    extra = torch.cuda.memory_allocated() - before - one
+    rng = np.random.default_rng(SEED + 17)
+    audio = asr_chunks(rng, 8)[:, : 30 * 16000]
+    cfg = plain.cfg
+    tok = torch.from_numpy(rng.integers(0, cfg.n_vocab, (8, 24)))
+    tok[:, 0] = cfg.sot
+    with torch.no_grad():
+        lp = plain.decode_logits(audio, tok)
+        t0 = time.perf_counter()
+        ls = sharded.decode_logits(audio, tok)
+        torch.cuda.synchronize()
+        t_s = time.perf_counter() - t0
+    err = rel_err(ls, lp)
+    print(f"[16b] teacher-forced logits of B=8 x 24 tokens over the (2, 2) mesh vs unsharded: "
+          f"max|diff| {err:.3e} of their max (tol {LOGIT_RTOL}), {t_s:.3f} s; the model "
+          f"{one / 2**20:.1f} MiB on the card, its (2, 2) placement {extra / 2**20:.1f} MiB more "
+          f"(four entries of one card share one copy) [{card}]")
+    if not err <= LOGIT_RTOL:
+        fail(f"[16b] sharded logits differ by {err}")
+    if extra > 0.1 * one:
+        fail(f"[16b] the placement took {extra} bytes beside a {one}-byte model")
+
+
+def mesh_onnx(torch, card: str, mm, mid: str, eng) -> None:
+    """[16c] the phase-12a full-width int8 parakeet-tdt-0.6b-v3 bundle, B=8 x
+    30 s, over dp=2 and dp=3 entries of the card: transcripts and every
+    DynamicQuantizeLinear scale of the encoder against the unsharded call."""
+    from crispy_tpu_torch.engine import transcription as tr
+    from crispy_tpu_torch.models import onnx_exec as ox
+
+    rng = np.random.default_rng(SEED + 18)
+    x = torch.from_numpy(asr_chunks(rng, 8)).cuda()
+    real = ox._dql_codes
+    scales: list = []
+
+    def rec(xx, lo, hi):
+        out = real(xx, lo, hi)
+        scales.append(out[1])
+        return out
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = eng.transcribe_batch(x)
+    wall0 = time.perf_counter() - t0
+    ox._dql_codes = rec
+    try:
+        eng.encoder_output(x)
+        s_want = np.array([float(v) for v in scales])
+        for dp in MESH_DP:
+            t0 = time.perf_counter()
+            sh = tr.load_engine(mid, mm, mesh=card_mesh(dp, model_parallel=1))
+            load_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ox._dql_codes = real
+            got = sh.transcribe_batch(x)
+            wall = time.perf_counter() - t0
+            ox._dql_codes = rec
+            scales.clear()
+            sh.encoder_output(x)
+            s_got = np.array([float(v) for v in scales]).reshape(len(s_want), dp)
+            s_err = float(np.abs(s_got / s_want[:, None] - 1).max())
+            print(f"[16c] {mid} B=8 x 30 s over dp={dp} (B pads to {-(-8 // dp) * dp}): "
+                  f"transcripts equal to the unsharded call's: {got == want}; "
+                  f"{len(s_want)} DynamicQuantizeLinear scales of the encoder, each shard's "
+                  f"against the unsharded one: max relative diff {s_err:.3e} (tol "
+                  f"{MESH_SCALE_RTOL}); load_engine {load_s:.1f} s; transcribe_batch {wall:.3f} s, "
+                  f"unsharded {wall0:.3f} s ({MESH_NOTE}) [{card}]")
+            if got != want or not all(got):
+                fail(f"[16c] dp={dp} transcripts differ from the unsharded call's")
+            if not s_err <= MESH_SCALE_RTOL:
+                fail(f"[16c] dp={dp} quantization scales differ by {s_err}")
+            del sh
+    finally:
+        ox._dql_codes = real
+
+
+def mesh_diarization(torch, card: str, diar: dict) -> None:
+    """[16d] the phase-11 hour over dp=2 entries of the card: the built-in
+    route (segments, margins bit-equal, NME-SC labels) and the PyanNet +
+    CAM++ from_device route at [11b]'s widths (speakers)."""
+    from crispy_tpu_torch.engine import diar_device as dd
+    from crispy_tpu_torch.engine import diarization as td
+
+    audio, seg, cam = diar["audio"], diar["seg"], diar["cam"]
+    mesh = card_mesh(2, model_parallel=1)
+    seconds = audio.shape[0] / td.SAMPLE_RATE
+    with torch.no_grad():
+        walls = {}
+        for tag, m in (("unsharded", None), ("dp=2", mesh)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = td.diarize(audio, max_speakers=8, merge_gap=1.0, mesh=m)
+            walls[tag] = (time.perf_counter() - t0, out)
+        same = speaker_segments(walls["dp=2"][1]) == speaker_segments(walls["unsharded"][1])
+        q, pad_to = td._upload_i16(audio, torch.device("cuda:0"))
+        m0 = dd.segmentation_margins(q, pad_to)
+        mm = dd.segmentation_margins(q, pad_to, mesh)
+        logits = np.stack([-m0, m0], axis=-1)
+        segments = td._segments_from_runs(td._runs_from_logits(logits, audio.shape[0], 1.0),
+                                          audio)
+        chunks = td.chunk_segments(segments)
+        ranges = [(c.offset, c.offset + len(c.samples)) for c in chunks]
+        e0 = dd.chunk_stats(q, pad_to, ranges)
+        em = dd.chunk_stats(q, pad_to, ranges, mesh)
+        l0, lm = td.nme_sc(e0, 8), td.nme_sc(e0, 8, mesh=mesh)
+        print(f"[16d] diarize of {seconds:.0f} s, built-in route, dp=2: "
+              f"{len(walls['dp=2'][1])} speaker segments, equal to unsharded: {same}; "
+              f"margins {m0.shape} bit-equal: {np.array_equal(m0, mm)}; chunk statistics of "
+              f"{len(ranges)} chunks bit-equal: {np.array_equal(e0, em)}; NME-SC labels "
+              f"equal: {np.array_equal(l0, lm)}; wall {walls['dp=2'][0]:.3f} s, unsharded "
+              f"{walls['unsharded'][0]:.3f} s ({MESH_NOTE}) [{card}]")
+        if not (same and np.array_equal(m0, mm) and np.array_equal(e0, em)
+                and np.array_equal(l0, lm)):
+            fail("[16d] the built-in route differs sharded vs unsharded")
+        with CudaStages(torch) as st:
+            nets = dict(segmentation_fn=StagedSegmentation(seg, dd, st),
+                        embedding_fn=StagedEmbedding(cam, dd, st))
+            res = {}
+            for tag, m in (("unsharded", None), ("dp=2", mesh)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = td.diarize(audio, max_speakers=8, merge_gap=1.0, mesh=m, **nets)
+                res[tag] = (time.perf_counter() - t0, out)
+        same = speaker_segments(res["dp=2"][1]) == speaker_segments(res["unsharded"][1])
+        print(f"[16d] the same hour through PyanNet + CAM++'s from_device route ([11b]'s "
+              f"widths, staged), dp=2: {len(res['dp=2'][1])} speaker segments, equal to "
+              f"unsharded: {same}; wall {res['dp=2'][0]:.3f} s, unsharded "
+              f"{res['unsharded'][0]:.3f} s ({MESH_NOTE}) [{card}]")
+        if not res["dp=2"][1] or not same:
+            fail("[16d] the from_device route's speakers differ sharded vs unsharded")
+
+
+def mesh_app(torch, card: str, ggml: Path, wav: Path) -> None:
+    """[16e] CrispyApp: no mesh on one card by default; over
+    make_mesh(["cuda:0"] * 2) start_transcription with diarization on
+    completes and equals the unsharded app's transcript."""
+    from crispy_tpu_torch.api.commands import CrispyApp
+    from crispy_tpu_torch.api.events import EventBus
+    from crispy_tpu_torch.engine import transcription as tr
+
+    old = os.environ.pop("CRISPY_MESH", None)
+    try:
+        texts, walls = {}, {}
+        with tempfile.TemporaryDirectory() as data:
+            os.environ["CRISPY_DATA_DIR"] = data
+            models = Path(data) / "Models"
+            models.mkdir(parents=True)
+            shutil.copyfile(ggml, models / "ggml-small.bin")  # whisper-base under "small"
+            rec = Path(data) / "rec.wav"
+            shutil.copyfile(wav, rec)
+            for tag, mesh in (("unsharded", None), ("mesh", card_mesh(2))):
+                app = CrispyApp(bus=EventBus()) if mesh is None else \
+                    CrispyApp(bus=EventBus(), mesh=mesh)
+                if mesh is None and app.resolved_mesh() is not None:
+                    fail(f"[16e] CRISPY_MESH unset on one card resolved to {app.mesh}")
+                app.set_active_model("small")
+                app.set_app_setting("diarization_enabled", "true")
+                tr.clear_transcription_progress(str(rec))
+                t0 = time.perf_counter()
+                app.start_transcription(str(rec)).join(timeout=600)
+                walls[tag] = time.perf_counter() - t0
+                st = app.get_transcription_state(str(rec))
+                if not st or st["status"] != "completed":
+                    fail(f"[16e] the {tag} app's transcription ended in {st}")
+                texts[tag] = app.get_transcription_result(str(rec))
+        tags = sorted(set(__import__("re").findall(r"\[(Speaker \d+)\|", texts["mesh"] or "")))
+        print(f"[16e] CrispyApp: resolved_mesh() None with CRISPY_MESH unset on one card; "
+              f"over make_mesh(['cuda:0'] * 2) start_transcription with diarization of the "
+              f"phase-8 WAV completed, {len(texts['mesh'] or '')} characters, speakers {tags}, "
+              f"equal to the unsharded app's: {texts['mesh'] == texts['unsharded']}; wall "
+              f"{walls['mesh']:.3f} s, unsharded {walls['unsharded']:.3f} s ({MESH_NOTE}) "
+              f"[{card}]")
+        if not texts["mesh"] or texts["mesh"] != texts["unsharded"] or not tags:
+            fail("[16e] the app's sharded transcription differs from the unsharded one")
+    finally:
+        if old is not None:
+            os.environ["CRISPY_MESH"] = old
+
 
 
 def main() -> int:
@@ -4104,7 +4449,8 @@ def main() -> int:
         t1 = time.perf_counter()
         decode_phase(torch, dev, ggml, wrng, card)
         t2 = time.perf_counter()
-        e2e_wav, e2e_manager = e2e_phase(torch, dev, ggml, Path(tmp), wrng, card)
+        e2e_wav, e2e_manager, e2e_text, e2e_wall = e2e_phase(torch, dev, ggml, Path(tmp),
+                                                             wrng, card)
         print(f"[8] phases 6, 7, 8 took {t1 - t0:.1f}, {t2 - t1:.1f}, "
               f"{time.perf_counter() - t2:.1f} s")
 
@@ -4142,10 +4488,11 @@ def main() -> int:
 
     # --- 11: speaker diarization; 12: the ONNX executor ------------------------
     t0 = time.perf_counter()
-    diarization_phase(torch, dev, card, e2e_wav, e2e_manager)
+    diar = diarization_phase(torch, dev, card, e2e_wav, e2e_manager)
     print(f"[11] phase 11 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    onnx_phase(torch, card, e2e_wav)
+    onnx_files = contextlib.ExitStack()  # the 0.6b bundle (16c)
+    onnx_kept = onnx_phase(torch, card, e2e_wav, onnx_files)
     print(f"[12] phase 12 took {time.perf_counter() - t0:.1f} s")
 
     # --- 13: the ONNX enc-dec bundles and the executor's diarization nets ------
@@ -4166,8 +4513,33 @@ def main() -> int:
     for name, c in serve_launches.items():
         launches[name] += c
     serve_cli_line()
-    whisper_files.close()
     print(f"[15] phase 15 took {time.perf_counter() - t0:.1f} s")
+
+    # --- 16: one process over a list of devices (a mesh of the one card) -------
+    from crispy_tpu_torch.parallel import make_mesh
+
+    if make_mesh().devices.shape != (1, 1):
+        fail("the mesh over the visible cards is not one card")
+    t0 = time.perf_counter()
+    mesh_launches = mesh_denoise(torch, pipeline, params, card, kernels)
+    for name, c in mesh_launches.items():
+        launches[name] += c
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as data:
+        os.environ["CRISPY_DATA_DIR"] = data  # sidecars stay out of HOME
+        mesh_whisper(torch, card, ggml, e2e_wav, e2e_manager, e2e_text, e2e_wall)
+        t2 = time.perf_counter()
+        mesh_onnx(torch, card, *onnx_kept)
+    onnx_kept = None
+    onnx_files.close()
+    t3 = time.perf_counter()
+    mesh_diarization(torch, card, diar)
+    t4 = time.perf_counter()
+    mesh_app(torch, card, ggml, e2e_wav)
+    whisper_files.close()
+    print(f"[16] 16a, 16b, 16c, 16d, 16e took {t1 - t0:.1f}, {t2 - t1:.1f}, {t3 - t2:.1f}, "
+          f"{t4 - t3:.1f}, {time.perf_counter() - t4:.1f} s; phase 16 took "
+          f"{time.perf_counter() - t0:.1f} s")
 
     for r in rows:
         r["launches"] = launches[r["name"]]

@@ -7,12 +7,16 @@ method of the same name and signature shape. Desktop-only concerns
 server-side analogs: permissions are always granted, window commands track
 visibility flags, system input volume persists in settings.
 
-``device`` takes the place of the JAX package's ``mesh``: None means the CUDA
-card. The engines that run on it, the transcription manager and the
-monitoring engine, are built at their first use, which resolves the device
-and raises there when there is no card; commands that need no engine (the
-catalog, downloads, selection, settings, recordings, conversion, the update
-check) run on a host without one.
+``device`` None means the CUDA card. The engines that run on it, the
+transcription manager and the monitoring engine, are built at their first
+use, which resolves the device and raises there when there is no card;
+commands that need no engine (the catalog, downloads, selection, settings,
+recordings, conversion, the update check) run on a host without one.
+
+``mesh`` is the JAX package's: a ``parallel.Mesh`` for transcription and
+diarization, or by default the lazy ``"auto"`` (every visible card once
+there are two or more, resolved at first engine use); ``CRISPY_MESH=off``
+(or ``0``, ``none``, ``false``) opts out.
 
 Usage:
     app = CrispyApp()
@@ -23,6 +27,7 @@ Usage:
 
 from __future__ import annotations
 
+import os
 import platform as _platform
 import threading
 from pathlib import Path
@@ -35,6 +40,7 @@ from ..engine import monitoring as mon_mod
 from ..engine import recording as rec_mod
 from ..engine import transcription as tr_mod
 from ..models import registry as reg_mod
+from ..parallel import check_device
 from ..utils import paths, settings as settings_mod, updater as updater_mod
 from .window import WindowManager
 
@@ -43,10 +49,16 @@ class CrispyApp:
     """Managed state bundle (the tauri::State singletons, main.rs:227-242)."""
 
     def __init__(self, bus: Optional[EventBus] = None, data_root: Optional[Path] = None,
-                 device=None):
+                 device=None, mesh=None):
         self.bus = bus or BUS
         self._data_root = data_root
         self.device = device  # None: the card, resolved by the engines at first use
+        if mesh is None:
+            flag = os.environ.get("CRISPY_MESH", "auto").lower()
+            mesh = None if flag in ("off", "0", "none", "false") else "auto"
+        elif not isinstance(mesh, str):
+            check_device(mesh, device)
+        self.mesh = mesh  # Mesh | None | the lazy "auto"
         self.model_manager = reg_mod.ModelManager(bus=self.bus)
         self.selected_model = reg_mod.SelectedModelState(bus=self.bus)
         self.recording_state = rec_mod.RecordingState()
@@ -70,8 +82,18 @@ class CrispyApp:
         with self._engines_lock:
             if self._transcription_manager is None:
                 self._transcription_manager = tr_mod.TranscriptionManager(
-                    self.model_manager, bus=self.bus, device=self.device)
+                    self.model_manager, bus=self.bus, device=self.device, mesh=self.mesh)
             return self._transcription_manager
+
+    def resolved_mesh(self):
+        """Resolve (and keep) the lazy "auto" mesh and hand it to the
+        transcription manager (built later, it takes it then); the first
+        call looks at the cards."""
+        self.mesh = tr_mod.resolve_mesh(self.mesh, self.device)
+        with self._engines_lock:
+            if self._transcription_manager is not None:
+                self._transcription_manager.mesh = self.mesh
+        return self.mesh
 
     @property
     def monitoring(self) -> mon_mod.MonitoringEngine:

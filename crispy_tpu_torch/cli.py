@@ -264,8 +264,8 @@ def _cmd_models(args) -> int:
         if not app.model_manager.is_downloaded(args.model_id):
             print(json.dumps({"error": f"{args.model_id} is not downloaded"}))
             return 1
-        result = val.validate_model(args.model_id, app.model_manager,
-                                    device=app.device, language=args.language)
+        result = val.validate_model(args.model_id, app.model_manager, device=app.device,
+                                    mesh=app.mesh, language=args.language)
         print(json.dumps(result, indent=2, ensure_ascii=False))
         if args.pin is not None:
             dest = Path(args.pin) if args.pin else val.golden_path(Path.cwd(), args.model_id)

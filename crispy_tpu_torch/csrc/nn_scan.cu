@@ -50,6 +50,8 @@
 
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include "device_guard.cuh"
 #include <math.h>
 #include <stdint.h>
 
@@ -634,7 +636,8 @@ extern "C" int crispy_nn_scan_f32(const float* feats, const unsigned char* silen
                                   const float* b_dg, const float* w_do, const float* b_do,
                                   const float* w_vo, const float* b_vo, const float* table,
                                   int S, int F, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const ScopedDevice guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return static_cast<int>(err);
   const Weights W{w_id, b_id, w_vg, u_vg, b_vg, w_ng, u_ng, b_ng,
                   w_dg, u_dg, b_dg, w_do, b_do, w_vo, b_vo, table};
@@ -655,7 +658,8 @@ extern "C" int crispy_nn_scan_resident(const float* feats, const unsigned char* 
                                        int device, void* stream) {
   if (n_half2 != kWORDS || reinterpret_cast<uintptr_t>(packed) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
+  const ScopedDevice guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return static_cast<int>(err);
   int sms = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);

@@ -18,6 +18,8 @@
 
 #include <cuda_runtime.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kWIN = 960;
@@ -41,7 +43,8 @@ pitch_gather_kernel(const float* __restrict__ ext, const int* __restrict__ start
 
 extern "C" int crispy_pitch_gather(const float* ext, const int* starts, float* out, int S,
                                    int L, int F, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const ScopedDevice guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(F, S);
   pitch_gather_kernel<<<grid, kTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(

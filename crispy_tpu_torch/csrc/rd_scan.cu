@@ -65,6 +65,8 @@
 // where; the plain version's T1 < 60 branch is unreachable and left out.
 
 #include <cuda_runtime.h>
+
+#include "device_guard.cuh"
 #include <math.h>
 #include <stdint.h>
 
@@ -182,7 +184,8 @@ rd_scan_kernel(const float* __restrict__ packed, const float* __restrict__ lp_in
 extern "C" int crispy_rd_scan(const float* packed, const float* lp_in, const float* lg_in,
                               float* pitch, float* lp_out, float* lg_out, int S, int F,
                               int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const ScopedDevice guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaFuncSetAttribute(rd_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(kSMEM_BYTES));

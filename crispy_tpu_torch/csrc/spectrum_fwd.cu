@@ -68,6 +68,8 @@
 
 #include <cuda_runtime.h>
 
+#include "device_guard.cuh"
+
 #include "fft480.cuh"
 
 namespace {
@@ -261,7 +263,8 @@ cudaError_t launch(const float* x, int ld_s, int S, int F, const float* tab, con
 extern "C" int crispy_spectrum_bands(const float* x, int ld_s, int hop, int S, int F,
                                      const float* tab, const float* band, const float* tw,
                                      float* Y, float* Ex, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const ScopedDevice guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hop == kHALF) err = launch<kHALF>(x, ld_s, S, F, tab, band, tw, Y, Ex, device, st);

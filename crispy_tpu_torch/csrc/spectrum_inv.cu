@@ -57,6 +57,8 @@
 
 #include <cuda_runtime.h>
 
+#include "device_guard.cuh"
+
 #include "fft480.cuh"
 
 namespace {
@@ -193,7 +195,8 @@ inv_ola_kernel(const float* __restrict__ Y, const float* __restrict__ inva,
 extern "C" int crispy_inv_spectrum_ola(const float* Y, const float* inva, const float* invb,
                                        const float* tw, const float* mem, float* out,
                                        float* new_mem, int S, int F, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const ScopedDevice guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaFuncSetAttribute(inv_ola_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(kSMEM_BYTES));

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ...device import resolve_device
+from ...parallel import check_device
 from . import constants as C
 from .frontend_kernels import IM0, YPAD, fwd_spectrum_bands, inv_spectrum_ola, win_spectrum_bands
 from .frontend_kernels import pad_band_e, pad_dft_fwd, pad_dft_inv
@@ -668,6 +669,7 @@ def denoise_batch(
     return_vad: bool = False,
     wire: str = "f32",
     device=None,
+    mesh=None,
 ):
     """Denoise [S, T] (or [T]) mono audio in [-1, 1]; returns the same shape.
 
@@ -676,12 +678,27 @@ def denoise_batch(
     raises). Trailing samples that don't fill a frame pass through
     unchanged (reference behaviour: partial frames are never emitted).
 
+    With a ``parallel.Mesh`` the streams split over its data rows: S pads
+    with zero streams to a multiple of dp, each row runs its shard on its
+    device with its own state, the params are copied once to each distinct
+    device, and every shard's block is queued before any output is read
+    back. ``device`` must then be None or the mesh's first device.
+
     ``wire="i16"`` takes int16 PCM input and returns int16 PCM output,
     halving host↔device transfer both ways. Exact: input scaling is a
     power-of-two divide and the output quantization is bit-identical to
-    io.wav.write_wav's.
+    io.wav.write_wav's. Not available with a mesh (the JAX package's sharded
+    step keeps the f32 surface).
     """
-    dev = resolve_device(device)
+    if mesh is not None:
+        check_device(mesh, device)
+        if wire == "i16":
+            raise ValueError("wire='i16' is not supported with a mesh")
+        devs = mesh.data_devices()
+        dev = resolve_device(mesh.first)
+    else:
+        dev = resolve_device(device)
+        devs = [dev]
     audio = np.asarray(audio)
     squeeze = audio.ndim == 1
     if wire == "i16":
@@ -702,16 +719,25 @@ def denoise_batch(
     n_frames = T // FRAME
     out = np.array(a, copy=True)
     vads = []
-    state = init_state(S, dev)
+    # shard i: streams [i*b, (i+1)*b) of the zero-padded batch on devs[i];
+    # one copy of the params per distinct device (.to is a no-op where
+    # they already lie, so repeated entries share them)
+    b = -(-S // len(devs))
+    if b * len(devs) != S:
+        a = np.pad(a, ((0, b * len(devs) - S), (0, 0)))
+    copies = {d: {k: v.to(d) for k, v in params.items()} for d in dict.fromkeys(devs)}
+    shards = [(slice(i * b, (i + 1) * b), d, copies[d], init_state(b, d))
+              for i, d in enumerate(devs)]
+    states = [sh[3] for sh in shards]
     blk = block_frames * FRAME
     # Results copy back without blocking the host, so the next blocks are
     # queued while earlier ones compute; the host waits once per flush.
-    pending: list = []  # (sample offset, length, out block, vad block)
+    pending: list = []  # (sample offset, length, out blocks, vad blocks)
     pending_bytes = 0
     flush_bytes = 512 << 20  # bound the device- and pinned-host-resident output
 
     def to_host(t: torch.Tensor) -> torch.Tensor:
-        if dev.type != "cuda":
+        if t.device.type != "cuda":
             return t
         h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         h.copy_(t, non_blocking=True)
@@ -719,12 +745,13 @@ def denoise_batch(
 
     def flush():
         nonlocal pending_bytes
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        for d, td, o, v in pending:
-            out[:, d: d + td] = o.numpy()
+        for d in dict.fromkeys(devs):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+        for off, td, outs, vs in pending:
+            out[:, off: off + td] = np.concatenate([o.numpy() for o in outs])[:S]
             if return_vad:
-                vads.append(v.numpy())
+                vads.append(np.concatenate([v.numpy() for v in vs])[:S])
         pending.clear()
         pending_bytes = 0
 
@@ -732,10 +759,14 @@ def denoise_batch(
     with torch.no_grad():
         while done < n_frames * FRAME:
             todo = min(blk, n_frames * FRAME - done)
-            chunk = torch.from_numpy(np.ascontiguousarray(a[:, done: done + todo])).to(dev)
-            state, o, v = step(params, state, chunk)
-            pending.append((done, todo, to_host(o), to_host(v) if return_vad else None))
-            pending_bytes += o.numel() * o.element_size()
+            outs, vs = [], []
+            for i, (rows, d, p, _) in enumerate(shards):
+                chunk = torch.from_numpy(np.ascontiguousarray(a[rows, done: done + todo])).to(d)
+                states[i], o, v = step(p, states[i], chunk)
+                outs.append(to_host(o))
+                vs.append(to_host(v) if return_vad else None)
+                pending_bytes += o.numel() * o.element_size()
+            pending.append((done, todo, outs, vs))
             if pending_bytes >= flush_bytes:
                 flush()
             done += todo

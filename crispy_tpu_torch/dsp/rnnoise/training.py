@@ -333,8 +333,8 @@ def train_model(
     fresh clean x noise x SNR recombination there; the draws of a call of
     `steps_per_call` steps go up in one copy, and the call's losses come
     back in one read when it is logged. The default (None) generates each
-    step's batch on the host. `mesh` must be None: training over several
-    cards waits for the port's multi-GPU slice.
+    step's batch on the host. `mesh` must be None: DP training over a mesh
+    and over several processes is ROADMAP item 12c-ii.
     """
     from torch.optim.lr_scheduler import LambdaLR
 
@@ -342,7 +342,8 @@ def train_model(
 
     if mesh is not None:
         raise NotImplementedError(
-            "training over a mesh waits for the port's multi-GPU slice (ROADMAP item 12c)")
+            "training over a mesh is not ported yet: DP training over a mesh and over "
+            "several processes is ROADMAP item 12c-ii; train on one device")
     dev = resolve_device(device)
     pipe_params = pipeline.make_params(None, dev)  # DSP tables only (weights unused here)
     rng = np.random.default_rng(seed)

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..parallel import check_device
 
 SAMPLE_RATE = 16000
 WINDOW_SAMPLES = SAMPLE_RATE * 10  # diarization.rs:103
@@ -211,15 +212,17 @@ def _connected(lap: np.ndarray) -> bool:
     return bool(seen.all())
 
 
-def nme_sc(embeddings: np.ndarray, max_speakers: int, device=None) -> np.ndarray:
+def nme_sc(embeddings: np.ndarray, max_speakers: int, device=None,
+           mesh=None) -> np.ndarray:
     """Spectral clustering with automatic speaker count (NME criterion), on
-    ``device`` (default: the card; ``nme_device.nme_sc_device``).
+    ``device`` (default: the card; ``nme_device.nme_sc_device``); with a
+    ``parallel.Mesh`` the p-sweep splits over its devices.
     ``CRISPY_NME=host`` runs the NumPy oracle instead, by request only."""
     emb = np.asarray(embeddings, np.float32)
     if emb.shape[0] > 2 and os.environ.get("CRISPY_NME", "device") != "host":
         from . import nme_device
 
-        return nme_device.nme_sc_device(emb, max_speakers, device=device)
+        return nme_device.nme_sc_device(emb, max_speakers, device=device, mesh=mesh)
     return nme_sc_host(emb, max_speakers)
 
 
@@ -490,16 +493,17 @@ def _upload_i16(audio, dev: torch.device) -> Tuple[torch.Tensor, int]:
 
 
 def _diarize_fused_frontend(
-    audio, merge_gap: float, device=None
+    audio, merge_gap: float, device=None, mesh=None
 ) -> Tuple[List[VadSegment], List[VadSegment], np.ndarray]:
     """The built-in stand-in nets on one device copy of the recording:
-    energy-VAD margins and per-chunk mel statistics (``diar_device``).
-    Decode/chunk semantics are the host helpers above."""
+    energy-VAD margins and per-chunk mel statistics (``diar_device``), over
+    the mesh's data rows when there is one. Decode/chunk semantics are the
+    host helpers above."""
     from . import diar_device as dd
 
     dev = resolve_device(device)
     q, pad_to = _upload_i16(audio, dev)
-    margin = dd.segmentation_margins(q, pad_to)  # [W, 589]
+    margin = dd.segmentation_margins(q, pad_to, mesh)  # [W, 589]
     logits = np.stack([-margin, margin], axis=-1)
     merged = _runs_from_logits(logits, audio.shape[0], merge_gap)
     segments = _segments_from_runs(merged, audio)
@@ -507,27 +511,29 @@ def _diarize_fused_frontend(
         return [], [], np.zeros((0, 160), np.float32)
     chunks = chunk_segments(segments)
     ranges = [(c.offset, c.offset + len(c.samples)) for c in chunks]
-    return segments, chunks, dd.chunk_stats(q, pad_to, ranges)
+    return segments, chunks, dd.chunk_stats(q, pad_to, ranges, mesh)
 
 
 def _diarize_device_nets(
     audio, merge_gap: float, segmentation_fn: Callable, embedding_fn: Callable,
-    device=None,
+    device=None, mesh=None,
 ) -> Tuple[List[VadSegment], List[VadSegment], np.ndarray]:
     """Real nets that offer ``from_device`` (the native PyanNet and CAM++) on
     one device copy of the recording: int16, as the reference feeds them
     (diarization.rs:85-93); windows and chunks are formed on the device.
+    With a mesh the windows and chunks split over its data rows.
     Decode/merge/chunk semantics are the host helpers above."""
     dev = resolve_device(device)
     q, _pad_to = _upload_i16(audio, dev)
-    logits = np.asarray(segmentation_fn.from_device(q))
+    on = {} if mesh is None else {"mesh": mesh}
+    logits = np.asarray(segmentation_fn.from_device(q, **on))
     merged = _runs_from_logits(logits, audio.shape[0], merge_gap)
     segments = _segments_from_runs(merged, audio)
     if not segments:
         return [], [], np.zeros((0, 0), np.float32)
     chunks = chunk_segments(segments)
     ranges = [(c.offset, c.offset + len(c.samples)) for c in chunks]
-    return segments, chunks, np.asarray(embedding_fn.from_device(q, ranges))
+    return segments, chunks, np.asarray(embedding_fn.from_device(q, ranges, **on))
 
 
 # ---------------------------------------------------------------------------
@@ -542,15 +548,19 @@ def diarize(
     segmentation_fn: Callable = energy_vad_logits,
     embedding_fn: Callable = melstats_embedding,
     device=None,
+    mesh=None,
 ) -> List[SpeakerSegment]:
     """float32 mono 16 kHz (an array, or a tensor on a device) →
     chronologically labeled speaker segments. The embeddings' clustering
     runs on ``device`` (default: the card); from FUSED_MIN_SAMPLES on, so
     do the frontends (``CRISPY_DIAR_FUSED=off`` keeps them on the host path
-    by request)."""
+    by request). With a ``parallel.Mesh`` (``device`` then None or its
+    first device) the frontends' windows, frames and chunks and the NME
+    p-sweep split over it."""
     if sample_rate != SAMPLE_RATE:
         raise ValueError("diarization requires 16 kHz mono")
-    dev = resolve_device(device)
+    check_device(mesh, device)
+    dev = resolve_device(mesh.first if mesh is not None else device)
     max_speakers = max(1, max_speakers)
     if not isinstance(audio, torch.Tensor):
         audio = np.asarray(audio, np.float32)
@@ -560,10 +570,11 @@ def diarize(
                  and os.environ.get("CRISPY_DIAR_FUSED", "on") != "off")
     if (device_ok and segmentation_fn is energy_vad_logits
             and embedding_fn is melstats_embedding):
-        fused = _diarize_fused_frontend(audio, merge_gap, dev)
+        fused = _diarize_fused_frontend(audio, merge_gap, dev, mesh)
     elif (device_ok and hasattr(segmentation_fn, "from_device")
           and hasattr(embedding_fn, "from_device")):
-        fused = _diarize_device_nets(audio, merge_gap, segmentation_fn, embedding_fn, dev)
+        fused = _diarize_device_nets(audio, merge_gap, segmentation_fn, embedding_fn, dev,
+                                     mesh)
     if fused is not None:
         segments, chunks, embeddings = fused
         if not segments:
@@ -580,7 +591,7 @@ def diarize(
         embeddings = np.asarray(embedding_fn([c.samples for c in chunks]))
     n = len(chunks)
     labels = (np.zeros(n, np.int64) if n <= 2
-              else nme_sc(embeddings, max_speakers, device=dev))
+              else nme_sc(embeddings, max_speakers, device=dev, mesh=mesh))
 
     appearance: List[int] = []
     for lbl in labels:
@@ -613,6 +624,7 @@ def run_diarization(
     merge_gap: float = 1.0,
     bus=None,
     device=None,
+    mesh=None,
 ) -> str:
     """Transcription hand-off: diarize + interleave with word segments.
 
@@ -624,8 +636,12 @@ def run_diarization(
          ``from_onnx``) over the same file;
       3. the built-in stand-in (energy VAD / log-mel stats) — never chosen
          silently: a 'diarization-fallback' event carries both errors.
+
+    The nets load on ``device``, or on a ``parallel.Mesh``'s first device
+    with ``diarize`` run over the mesh.
     """
-    dev = resolve_device(device)
+    check_device(mesh, device)
+    dev = resolve_device(mesh.first if mesh is not None else device)
 
     def load(net: str, model_id: str, native: Callable):
         if model_manager is None or not model_manager.is_downloaded(model_id):
@@ -649,5 +665,5 @@ def run_diarization(
     segs = diarize(audio_16k, sample_rate, max_speakers, merge_gap,
                    segmentation_fn=energy_vad_logits if seg_fn is None else seg_fn,
                    embedding_fn=melstats_embedding if emb_fn is None else emb_fn,
-                   device=dev)
+                   device=dev, mesh=mesh)
     return format_diarized_text(text_segments, segs)

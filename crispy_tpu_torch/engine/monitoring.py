@@ -150,6 +150,8 @@ class MonitoringEngine:
             proc0 = ns._proc
             if isinstance(proc0, RnnNoiseProcessor):
                 proc0.push_block(np.zeros(self.block_samples, np.float32))
+            t_start = time.monotonic()
+            n_done = 0
             while not self._stop.is_set():
                 block = dev.fn(self.block_samples)
                 if block is None or len(block) == 0:
@@ -192,12 +194,16 @@ class MonitoringEngine:
                         "budget_ms": round(budget_s * 1e3, 3)})
                     lat_max_ms = 0.0
                 if self.realtime:
-                    # pace to the block budget NET of processing time —
-                    # sleeping the full budget would run at <1x realtime
-                    # and grow a live feeder's backlog without bound
-                    elapsed = time.monotonic() - t0
-                    if elapsed < budget_s:
-                        time.sleep(budget_s - elapsed)
+                    # pace to an absolute deadline: block n is due at
+                    # t_start + n × budget. A late block does not sleep and
+                    # the deadline is not reset, so the loop keeps
+                    # realtime on average; pacing each block from its own
+                    # start ran slower than realtime and grew a live
+                    # feeder's backlog without bound
+                    n_done += 1
+                    wait = t_start + n_done * budget_s - time.monotonic()
+                    if wait > 0:
+                        time.sleep(wait)
 
         self._thread = threading.Thread(target=run, daemon=True)
         self._thread.start()

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..parallel import check_device, gather
 
 _SWEEP_BATCH = 16  # p values a batched sweep step holds ([16, N, N] each)
 
@@ -183,15 +184,15 @@ def _pruned(aff: torch.Tensor, rank: torch.Tensor, n: int, p: torch.Tensor) -> t
     return torch.maximum(a, a.transpose(-1, -2))
 
 
-def _sweep(aff, rank, valid, n: int, kmax: int, KMAX: int, P: int):
-    """For p = 1..P: the NME ratio (p/n)/eigengap, the graph's connectivity
-    and its speaker count, _SWEEP_BATCH values of p a batched step."""
+def _sweep(aff, rank, valid, n: int, kmax: int, KMAX: int, ps: torch.Tensor):
+    """For each p of ps: the NME ratio (p/n)/eigengap, the graph's
+    connectivity and its speaker count, _SWEEP_BATCH values of p a batched
+    step."""
     N = aff.shape[0]
     n_sq = int(np.ceil(np.log2(max(N, 2))))
     use_subspace = _use_subspace(N, KMAX)
-    ps = torch.arange(1, P + 1, device=aff.device)
     ratios, conns, ks = [], [], []
-    for s in range(0, P, _SWEEP_BATCH):
+    for s in range(0, ps.shape[0], _SWEEP_BATCH):
         p = ps[s:s + _SWEEP_BATCH]
         a = _pruned(aff, rank, n, p)
         lap = _laplacian(a, valid)
@@ -250,17 +251,37 @@ def _final(aff, rank, valid, n: int, kmax: int, KMAX: int, ratios, conns, ks) ->
     return torch.where(sep_bad | (k <= 1), 0, labels)
 
 
-def nme_core(emb: torch.Tensor, n: int, kmax: int, KMAX: int, P: int) -> torch.Tensor:
+def nme_core(emb: torch.Tensor, n: int, kmax: int, KMAX: int, P: int,
+             mesh=None) -> torch.Tensor:
     """NME-SC of the first n rows of bucket-padded embeddings [N, D] on their
-    device → labels [N]: the graph, the sweep over p = 1..P, the final pass."""
+    device → labels [N]: the graph, the sweep over p = 1..P, the final pass.
+
+    The sweep runs in whole batches of _SWEEP_BATCH values of p (P pads up;
+    the p past the bound are masked in the final pass, as the bucket's
+    are). With a mesh it splits over every device of it, whole batches to
+    each device on a copy of the graph: every batch is the same batched
+    eigenproblem with or without a mesh, so the labels do not change."""
     aff, rank, valid = _graph(emb, n)
-    return _final(aff, rank, valid, n, kmax, KMAX, *_sweep(aff, rank, valid, n, kmax, KMAX, P))
+    P = -(-P // _SWEEP_BATCH) * _SWEEP_BATCH
+    if mesh is None:
+        sweep = _sweep(aff, rank, valid, n, kmax, KMAX, torch.arange(1, P + 1, device=emb.device))
+    else:
+        devs = mesh.flat()
+        per = -(-P // (len(devs) * _SWEEP_BATCH)) * _SWEEP_BATCH
+        graphs = {d: (aff.to(d), rank.to(d), valid.to(d)) for d in dict.fromkeys(devs)}
+        parts = [_sweep(*graphs[d], n, kmax, KMAX,
+                        torch.arange(i * per + 1, (i + 1) * per + 1, device=d))
+                 for i, d in enumerate(devs)]
+        sweep = [gather([p[k] for p in parts], emb.device) for k in range(3)]
+    return _final(aff, rank, valid, n, kmax, KMAX, *sweep)
 
 
-def nme_sc_device(embeddings, max_speakers: int, device=None) -> np.ndarray:
+def nme_sc_device(embeddings, max_speakers: int, device=None, mesh=None) -> np.ndarray:
     """NME-SC of [n, D] embeddings (an array, or a tensor) on ``device``
-    (default: the card) → int64 labels [n]. A failure on the device raises."""
-    dev = resolve_device(device)
+    (default: the card), or with the p-sweep over a ``parallel.Mesh`` →
+    int64 labels [n]. A failure on the device raises."""
+    check_device(mesh, device)
+    dev = resolve_device(mesh.first if mesh is not None else device)
     emb = torch.as_tensor(embeddings, dtype=torch.float32)
     n, d = emb.shape
     if n <= 2:
@@ -270,5 +291,5 @@ def nme_sc_device(embeddings, max_speakers: int, device=None) -> np.ndarray:
     KMAX = int(min(max(kmax, 1), N - 1))
     emb_pad = torch.zeros((N, d), dtype=torch.float32, device=dev)
     emb_pad[:n] = emb.to(dev)
-    labels = nme_core(emb_pad, n, kmax, KMAX, _p_cap(N))
+    labels = nme_core(emb_pad, n, kmax, KMAX, _p_cap(N), mesh)
     return labels[:n].cpu().numpy().astype(np.int64)

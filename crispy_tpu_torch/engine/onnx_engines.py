@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..parallel import check_device, gather, pad_rows
 from ..models.onnx_exec import _TORCH_OF_ONNX, OnnxRunner
 from ..models.onnx_import import _DTYPES
 from ..models.parakeet import TDT_SYNC_EVERY
@@ -239,6 +240,55 @@ def _chunks_2d(chunks_16k, device: torch.device) -> torch.Tensor:
     return torch.atleast_2d(chunks_16k).to(device, torch.float32)
 
 
+def _pad_batch(a: torch.Tensor, mesh) -> Tuple[torch.Tensor, int]:
+    """The chunk batch padded to a multiple of the mesh's dp by repeating
+    its last row (the JAX package's ``_pad_batch``); returns it with the
+    live row count."""
+    B = a.shape[0]
+    if mesh is None:
+        return a, B
+    return pad_rows(a, -(-B // mesh.dp) * mesh.dp, "edge"), B
+
+
+def _shard_data(x, mesh) -> list:
+    """x's leading axis in equal pieces over the mesh's data rows, each on
+    its row's device (numpy pieces stay static numpy)."""
+    n = x.shape[0] // mesh.dp
+    return [x[i * n:(i + 1) * n].to(d) if isinstance(x, torch.Tensor) else x[i * n:(i + 1) * n]
+            for i, d in enumerate(mesh.data_devices())]
+
+
+def _placed(device: torch.device, mesh) -> Tuple[torch.device, object]:
+    """An engine's device and mesh from its ``device=``/``mesh=`` arguments."""
+    check_device(mesh, device)
+    return resolve_device(mesh.first if mesh is not None else device), mesh
+
+
+def _lift(runner: OnnxRunner, device: torch.device, mesh) -> Dict[torch.device, dict]:
+    """The runner's weights once on each device a graph call runs on."""
+    devs = [device] if mesh is None else mesh.data_devices()
+    return {d: runner.lift_big_params(d) for d in dict.fromkeys(devs)}
+
+
+def _call(runner: OnnxRunner, big: dict, bigs: Dict[torch.device, dict], inputs: dict,
+          mesh, device: torch.device) -> dict:
+    """runner on inputs with the weights ``big``; under a mesh one lockstep
+    call per data row (``OnnxRunner.call_sharded``) with each row's weights
+    from ``bigs``, every input with the padded batch's rows split over the
+    rows, and the outputs gathered back on ``device`` in row order."""
+    if mesh is None:
+        return runner(big, **inputs)
+    Bp = next(v.shape[0] for v in inputs.values() if isinstance(v, torch.Tensor))
+    per = [dict() for _ in range(mesh.dp)]
+    for name, v in inputs.items():
+        split = getattr(v, "ndim", 0) and v.shape[0] == Bp
+        for d, piece in zip(per, _shard_data(v, mesh) if split else [v] * mesh.dp):
+            d[name] = piece
+    outs = runner.call_sharded([bigs[d] for d in mesh.data_devices()], per)
+    return {n: (gather([o[n] for o in outs], device) if isinstance(outs[0][n], torch.Tensor)
+                else outs[0][n]) for n in runner.output_names}
+
+
 def _resolve_frontend(model_dir, feats_shape, device: torch.device):
     """The feature frontend for an encoder: a bundle's preprocess graph
     (raw waveform → features, the moonshine layout) when present, else the
@@ -353,15 +403,17 @@ def _load_id_tables(model_dir) -> Tuple[Dict[str, int], Dict[str, int]]:
 
 class OnnxCtcEngine:
     """Single-graph CTC: features → log-probs [B, T', V] → greedy collapse,
-    on ``device`` (default: the card)."""
+    on ``device`` (default: the card). With a ``parallel.Mesh`` the chunk
+    batch pads to dp (``_pad_batch``) and the graph runs over its data rows
+    (``_call``)."""
 
     name = "onnx-ctc"
 
     def __init__(self, model_dir, model_id: str = "onnx-ctc",
                  blank_id: Optional[int] = None, language_id: Optional[int] = None,
-                 textnorm: str = "woitn", device=None):
+                 textnorm: str = "woitn", device=None, mesh=None):
         self.name = model_id
-        self.device = resolve_device(device)
+        self.device, self.mesh = _placed(device, mesh)
         model_dir = Path(model_dir)
         p = find_onnx(model_dir, exclude=("decoder", "joint", "preprocess"))
         if p is None:
@@ -380,14 +432,16 @@ class OnnxCtcEngine:
         self.lid_table, self.textnorm_table = _load_id_tables(model_dir)
         self.language_id = language_id  # fixed override; None = per-call table
         self.textnorm_id = self.textnorm_table.get(textnorm, 15)
-        self._big = self.runner.lift_big_params(self.device)
+        self._bigs = _lift(self.runner, self.device, self.mesh)
+        self._big = self._bigs[self.device]
 
     def _run(self, feats, extra, big):
         """The graph, then argmax and the CTC collapse on the device: only
         [B, T] ids and the emit mask leave it."""
         inputs = {self.feats_name: feats}
         inputs.update(extra)
-        logits = _first_rank3(self.runner, self.runner(big, **inputs))
+        logits = _first_rank3(self.runner, _call(self.runner, big, self._bigs, inputs,
+                                                 self.mesh, self.device))
         if logits is None:
             raise ValueError("no rank-3 logits output")
         # orient to [B, T, V]: the vocab axis is the one sized like the
@@ -440,13 +494,13 @@ class OnnxCtcEngine:
 
     def _emissions(self, chunks_16k, language: str = "en"):
         """Greedy CTC emissions with frame times: per row (ids, times)."""
-        a = _chunks_2d(chunks_16k, self.device)
-        B = a.shape[0]
+        a, B = _pad_batch(_chunks_2d(chunks_16k, self.device), self.mesh)
         dur = a.shape[1] / 16000.0
         feats = self.frontend(a)
         n_frames = _frame_count(self.kind, a.shape[1])
-        ids, emit = self._run(feats, self._extra_inputs(B, n_frames, language), self._big)
-        ids, emit = ids.cpu().numpy(), emit.cpu().numpy()
+        ids, emit = self._run(feats, self._extra_inputs(a.shape[0], n_frames, language),
+                              self._big)
+        ids, emit = ids[:B].cpu().numpy(), emit[:B].cpu().numpy()
         frame_dur = dur / max(ids.shape[1], 1)
         rows = []
         for b in range(B):
@@ -476,7 +530,7 @@ class OnnxCtcEngine:
         return out
 
 
-def engine_from_onnx_dir(model_id: str, path, device=None, **kwargs):
+def engine_from_onnx_dir(model_id: str, path, device=None, mesh=None, **kwargs):
     """Dispatch an ONNX bundle to the right engine by its file inventory:
     a *joint* decoder → transducer/TDT; encoder+decoder pair → AR enc-dec;
     a single graph → CTC. This is how unknown-architecture bundles (cohere,
@@ -484,14 +538,14 @@ def engine_from_onnx_dir(model_id: str, path, device=None, **kwargs):
     path = Path(path)
     joint = find_onnx(path, "joint")
     if joint is not None:
-        return OnnxTdtEngine(path, model_id, device=device)
+        return OnnxTdtEngine(path, model_id, device=device, mesh=mesh)
     enc = find_onnx(path, "encoder", "encode")
     dec = (find_onnx(path, "uncached") or find_onnx(path, "merged")
            or find_onnx(path, "decoder", "decode", exclude=("cached",)))
     if enc is not None and dec is not None and enc != dec:
-        return OnnxEncDecEngine(path, model_id, device=device, **kwargs)
+        return OnnxEncDecEngine(path, model_id, device=device, mesh=mesh, **kwargs)
     if find_onnx(path) is not None:
-        return OnnxCtcEngine(path, model_id, device=device, **kwargs)
+        return OnnxCtcEngine(path, model_id, device=device, mesh=mesh, **kwargs)
     raise FileNotFoundError(f"no .onnx files in {path}")
 
 
@@ -518,9 +572,9 @@ class OnnxTdtEngine:
     #: the sequential TDT loop amortizes over the bigger batch.
     decode_batch_bucket = 16
 
-    def __init__(self, model_dir, model_id: str = "onnx-tdt", device=None):
+    def __init__(self, model_dir, model_id: str = "onnx-tdt", device=None, mesh=None):
         self.name = model_id
-        self.device = resolve_device(device)
+        self.device, self.mesh = _placed(device, mesh)
         model_dir = Path(model_dir)
         enc_p = find_onnx(model_dir, "encoder")
         dec_p = find_onnx(model_dir, "decoder", "joint")
@@ -550,13 +604,15 @@ class OnnxTdtEngine:
                     f"graph in {model_dir}: not a recognized targets/"
                     "target_length input — extend onnx_contracts with the "
                     "exporter's contract")
-        self._enc_big = self.enc.lift_big_params(self.device)
+        self._enc_bigs = _lift(self.enc, self.device, self.mesh)
+        self._enc_big = self._enc_bigs[self.device]
         self._dec_big = self.dec.lift_big_params(self.device)
 
     def _encode(self, feats, extra, big):
         inputs = {self.enc_feats_name: feats}
         inputs.update(extra)
-        return _first_rank3(self.enc, self.enc(big, **inputs))
+        return _first_rank3(self.enc, _call(self.enc, big, self._enc_bigs, inputs,
+                                            self.mesh, self.device))
 
     def _joint(self, frame, targets, states, extra, big):
         """One decoder_joint call: frame [B, D], targets [B, 1] →
@@ -612,13 +668,16 @@ class OnnxTdtEngine:
         return states
 
     def encoder_output(self, chunks_16k) -> torch.Tensor:
-        """The encoder's output [B, T', D] for a chunk batch, on the device."""
-        a = _chunks_2d(chunks_16k, self.device)
+        """The encoder's output [B, T', D] for a chunk batch, on the device.
+        Under a mesh the batch pads to dp and runs over the data rows; the
+        pad rows are cut (they repeat the last row, so the decoder's int8
+        activation ranges are those of the padded batch)."""
+        a, B = _pad_batch(_chunks_2d(chunks_16k, self.device), self.mesh)
         feats = self.frontend(a)
         n_frames = _frame_count(self.kind, a.shape[1])
         extra = _length_extra(self.enc_ints, self.enc_roles, a.shape[0], n_frames,
                               f"{self.name} encoder")
-        enc = self._encode(feats, extra, self._enc_big)
+        enc = self._encode(feats, extra, self._enc_big)[:B]
         if self._enc_time_last(enc.shape):  # [B, D, T'] → [B, T', D]
             enc = enc.transpose(1, 2)
         return enc
@@ -770,10 +829,10 @@ class OnnxEncDecEngine:
     def __init__(self, model_dir, model_id: str = "onnx-encdec",
                  max_new: int = 224, prompt_tokens: Optional[List[str]] = None,
                  eos_tokens: Sequence[str] = ("</s>", "<|endoftext|>", "<eos>"),
-                 device=None, beam: int = 1):
+                 device=None, beam: int = 1, mesh=None):
         self.name = model_id
         self.max_new = max_new
-        self.device = resolve_device(device)
+        self.device, self.mesh = _placed(device, mesh)
         self.beam = max(1, int(beam))
         model_dir = Path(model_dir)
         enc_p = find_onnx(model_dir, "encoder", "encode", exclude=("preprocess",))
@@ -831,13 +890,15 @@ class OnnxEncDecEngine:
         self.prompt_ids = self._resolve_prompt(prompt_tokens)
         self.eos_id = self._resolve_eos(eos_tokens)
         self._fixed_prompt = prompt_tokens is not None
-        self._enc_big = self.enc.lift_big_params(self.device)
+        self._enc_bigs = _lift(self.enc, self.device, self.mesh)
+        self._enc_big = self._enc_bigs[self.device]
         self._dec_big = self.dec.lift_big_params(self.device)
 
     def _encode(self, feats, extra, big):
         inputs = {self.enc_feats_name: feats}
         inputs.update(extra)
-        v = _first_rank3(self.enc, self.enc(big, **inputs))
+        v = _first_rank3(self.enc, _call(self.enc, big, self._enc_bigs, inputs,
+                                         self.mesh, self.device))
         if v is None:
             raise ValueError("no rank-3 encoder output")
         return v
@@ -933,13 +994,14 @@ class OnnxEncDecEngine:
         return [lang if t == en else t for t in self.prompt_ids]
 
     def encoder_output(self, chunks_16k) -> torch.Tensor:
-        """The encoder's rank-3 output for a chunk batch, on the device."""
-        a = _chunks_2d(chunks_16k, self.device)
+        """The encoder's rank-3 output for a chunk batch, on the device
+        (under a mesh as ``OnnxTdtEngine.encoder_output``)."""
+        a, B = _pad_batch(_chunks_2d(chunks_16k, self.device), self.mesh)
         feats = self.frontend(a)
         n_frames = _frame_count(self.kind, a.shape[1])
         extra = _length_extra(self.enc_ints, self.enc_roles, a.shape[0], n_frames,
                               f"{self.name} encoder")
-        return self._encode(feats, extra, self._enc_big)
+        return self._encode(feats, extra, self._enc_big)[:B]
 
     def _decode_rows(self, chunks_16k, language: str = "en") -> Tuple[List[List[int]], float]:
         """Encode + decode a chunk batch → (per-row generated token ids up

@@ -36,6 +36,7 @@ import torch.nn.functional as F
 
 from ..api.events import BUS, EventBus
 from ..device import resolve_device
+from ..parallel import check_device
 from ..io import wav as wavio
 from ..models.registry import ModelManager
 from ..utils import paths
@@ -207,7 +208,25 @@ def _has_hf_checkpoint(path: Path) -> bool:
     return (path / "model.safetensors").exists() or (path / "pytorch_model.bin").exists()
 
 
-def load_engine(model_id: str, model_manager: ModelManager, device=None) -> EngineProtocol:
+def resolve_mesh(mesh, device=None):
+    """The lazy ``"auto"`` mesh: None at one visible card or fewer, or when
+    ``device`` asks for the CPU, else every card on the data axis
+    (``make_mesh(model_parallel=1)``: DP over chunk batches scales every
+    engine). Resolved at first engine use, so a command that needs no
+    device never touches the card."""
+    if isinstance(mesh, str) and mesh == "auto":
+        if device is not None and torch.device(device).type != "cuda":
+            return None
+        if not torch.cuda.is_available() or torch.cuda.device_count() <= 1:
+            return None
+        from .. import parallel
+
+        return parallel.make_mesh(model_parallel=1)
+    return mesh
+
+
+def load_engine(model_id: str, model_manager: ModelManager, device=None,
+                mesh=None) -> EngineProtocol:
     """EngineType dispatch (managers/transcription.rs:119-172) onto ``device``
     (default: the card): whisper ggml files and HF checkpoint dirs; the
     native families from prepared bundles (``params.npz`` in the JAX
@@ -215,7 +234,17 @@ def load_engine(model_id: str, model_manager: ModelManager, device=None) -> Engi
     moonshine and parakeet CTC, from HF checkpoints; else the catalog's
     ONNX bundle through the executor, with the JAX package's engines and
     arguments: parakeet TDT, gigaam and sensevoice (blank 0) CTC, canary's
-    encoder-decoder pair, and moonshine and cohere by their file inventory."""
+    encoder-decoder pair, and moonshine and cohere by their file inventory.
+
+    With a ``parallel.Mesh`` (or ``"auto"``, ``resolve_mesh``) whisper runs
+    TP over its model axis and DP over its data axis, and the ONNX engines
+    split their chunk batches over its data rows; the native families take
+    no mesh in the JAX package and run on its first device. ``device`` must
+    then be None or that device."""
+    mesh = resolve_mesh(mesh, device)
+    check_device(mesh, device)
+    if mesh is not None:
+        device = mesh.first
     info = model_manager.find(model_id)
     if info is None:
         raise ValueError(f"unknown model: {model_id}")
@@ -225,13 +254,13 @@ def load_engine(model_id: str, model_manager: ModelManager, device=None) -> Engi
     dev = resolve_device(device)
     kind = info.engine_type
     if kind == "whisper":
-        return _whisper_engine(model_id, path, dev)
+        return _whisper_engine(model_id, path, dev, mesh)
     if kind == "cohere":
         # transcribe-rs's CohereModel is an external ONNX crate: the bundle's
         # architecture is pinned at load time from its file inventory
         from .onnx_engines import engine_from_onnx_dir
 
-        return engine_from_onnx_dir(model_id, path, device=dev)
+        return engine_from_onnx_dir(model_id, path, device=dev, mesh=mesh)
     native = {"parakeet": _parakeet_tdt_engine, "gigaam": _gigaam_engine,
               "canary": _canary_engine, "moonshine": _moonshine_engine,
               "sensevoice": _sensevoice_engine}
@@ -253,22 +282,24 @@ def load_engine(model_id: str, model_manager: ModelManager, device=None) -> Engi
                                engine_from_onnx_dir)
 
     if kind == "canary":
-        return OnnxEncDecEngine(path, model_id, device=dev)
+        return OnnxEncDecEngine(path, model_id, device=dev, mesh=mesh)
     if kind == "moonshine":
-        return engine_from_onnx_dir(model_id, path, device=dev)
+        return engine_from_onnx_dir(model_id, path, device=dev, mesh=mesh)
     if kind == "parakeet":
-        return OnnxTdtEngine(path, model_id, device=dev)
+        return OnnxTdtEngine(path, model_id, device=dev, mesh=mesh)
     return OnnxCtcEngine(path, model_id, blank_id=0 if kind == "sensevoice" else None,
-                         device=dev)
+                         device=dev, mesh=mesh)
 
 
-def _whisper_engine(model_id: str, path: Path, dev: torch.device) -> EngineProtocol:
+def _whisper_engine(model_id: str, path: Path, dev: torch.device, mesh=None) -> EngineProtocol:
     from ..models.whisper import WhisperModel
 
     if path.is_dir():
         wm = WhisperModel.from_hf(path, name=model_id, device=dev)
     else:
         wm = WhisperModel.from_ggml(path, name=model_id, device=dev)
+    if mesh is not None:
+        wm.shard_to(mesh)
 
     class _WhisperEngine(EngineProtocol):
         name = model_id
@@ -467,20 +498,26 @@ class TranscriptionState:
 
 class TranscriptionManager:
     """Loaded engine + per-recording state/cancel registry. ``device``
-    (default: the card) is where engines load and recordings resample."""
+    (default: the card) is where engines load and recordings resample;
+    ``mesh`` (a ``parallel.Mesh``, None, or the lazy ``"auto"``) is handed to
+    ``load_engine`` and, resolved, to diarization."""
 
     def __init__(self, model_manager: ModelManager, bus: EventBus = BUS,
-                 engine_loader: Optional[Callable] = None, device=None):
+                 engine_loader: Optional[Callable] = None, device=None, mesh=None):
         self.model_manager = model_manager
         self.bus = bus
+        if mesh is not None and not isinstance(mesh, str):
+            check_device(mesh, device)
+            device = mesh.first
         self.device = resolve_device(device)
+        self.mesh = mesh  # Mesh | None | the lazy "auto"
         self._engine: Optional[EngineProtocol] = None
         self._current_model_id: Optional[str] = None
         self._states: Dict[str, TranscriptionState] = {}
         self._cancel: Dict[str, threading.Event] = {}
         self._lock = threading.Lock()
         self._loader = engine_loader or (
-            lambda mid, mm: load_engine(mid, mm, device=self.device))
+            lambda mid, mm: load_engine(mid, mm, device=self.device, mesh=self.mesh))
 
     # -- model ------------------------------------------------------------------
     def get_current_model(self) -> Optional[str]:
@@ -691,7 +728,7 @@ def run_transcription(
                     audio, TARGET_SAMPLE_RATE, parts, model_manager=tm.model_manager,
                     max_speakers=int(diarization.get("max_speakers", 4)),
                     merge_gap=float(diarization.get("merge_gap", 1.0)),
-                    bus=bus, device=tm.device)
+                    bus=bus, device=tm.device, mesh=resolve_mesh(tm.mesh, tm.device))
             except Exception as dz_err:
                 # the product keeps the plain transcript when diarization
                 # fails (commands/transcription.rs:456-465), and says so

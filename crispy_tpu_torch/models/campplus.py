@@ -41,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..dsp.fbank import FRAME_LENGTH, FRAME_SHIFT, fbank
+from ..parallel import data_sharding, gather, module_on
 from .carry import load_params
 from .segmentation import Affine, layer_list
 
@@ -251,11 +252,14 @@ class CamPPlusModel(nn.Module):
     def _embed(self, audio: torch.Tensor, n_valid: torch.Tensor) -> np.ndarray:
         """[N, _MAX_SAMPLES] audio rows → [N, E] embeddings, ROWS_PER_FORWARD
         rows a forward."""
+        return self._embed_rows(audio, n_valid).cpu().numpy()
+
+    def _embed_rows(self, audio: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
         out = []
         for s in range(0, audio.shape[0], ROWS_PER_FORWARD):
             feats = fbank(audio[s:s + ROWS_PER_FORWARD], self.cfg.feat_dim)[:, :_MAX_FRAMES]
             out.append(self.forward(feats, n_valid[s:s + ROWS_PER_FORWARD]))
-        return torch.cat(out).cpu().numpy()
+        return torch.cat(out)
 
     @torch.no_grad()
     def __call__(self, segments: Sequence[np.ndarray]) -> np.ndarray:
@@ -268,11 +272,13 @@ class CamPPlusModel(nn.Module):
                            torch.from_numpy(n_valid).to(self.device))
 
     @torch.no_grad()
-    def from_device(self, dev_i16: torch.Tensor, ranges) -> np.ndarray:
+    def from_device(self, dev_i16: torch.Tensor, ranges, mesh=None) -> np.ndarray:
         """The one-upload route: [(sample_start, sample_end)] chunk ranges over
         the flat int16 recording on the device → [N, E], the chunks sliced
         there. Frames past a chunk's end read the audio after it instead of
-        zeros; every stage masks them."""
+        zeros; every stage masks them. With a ``parallel.Mesh`` the chunks
+        split over its data rows (a copy of the net on each distinct
+        device)."""
         n = len(ranges)
         if n == 0:
             return np.zeros((0, self.cfg.embedding_size), np.float32)
@@ -285,7 +291,12 @@ class CamPPlusModel(nn.Module):
         idx = (torch.from_numpy(starts).to(x.device)[:, None]
                + torch.arange(_MAX_SAMPLES, device=x.device)[None, :])
         audio = x[idx].float().mul_(1.0 / 32768.0)
-        return self._embed(audio, torch.from_numpy(n_valid).to(x.device))
+        nv = torch.from_numpy(n_valid).to(x.device)
+        if mesh is None:
+            return self._embed(audio, nv)
+        parts = [module_on(self, a.device)._embed_rows(a, v) for a, v in
+                 zip(data_sharding(mesh, audio, pad="edge"), data_sharding(mesh, nv, pad="edge"))]
+        return gather(parts, x.device, n).cpu().numpy()
 
 
 def chunk_rows(segments: Sequence[np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:

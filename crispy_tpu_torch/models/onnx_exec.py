@@ -342,6 +342,13 @@ class OnnxRunner:
                  **inputs) -> Dict[str, Any]:
         # `params` is positional-only so a graph input literally named
         # "params" still routes through **inputs.
+        vals = self._env(params, inputs)
+        self.counts = {"device": 0, "host": 0}
+        self._run_nodes(self.graph.nodes, vals, self.output_names)
+        return {n: vals[n] for n in self.output_names}
+
+    def _env(self, params: Optional[Dict[str, Any]], inputs: Dict[str, Any]) -> Dict[str, Any]:
+        """A call's values: the initializers, then params, then the inputs."""
         vals: Dict[str, Any] = dict(self.graph.initializers)
         vals[""] = None  # optional (absent) input slot
         for n in self.input_names:
@@ -350,9 +357,73 @@ class OnnxRunner:
         if params:
             vals.update(params)
         vals.update(inputs)
+        return vals
+
+    @torch.no_grad()
+    def call_sharded(self, params: Sequence[Optional[Dict[str, Any]]],
+                     inputs: Sequence[Dict[str, Any]]) -> List[Dict[str, Any]]:
+        """One call per data shard of a batch (``parallel.Mesh``), the shards
+        walked node by node in lockstep, so that a node that mixes the rows
+        of the batch sees all of them, as the unsharded call's node does:
+        DynamicQuantizeLinear takes its min and max over every shard, and the
+        other row-mixing nodes (``_mixes_rows``) run once on the shards
+        joined along axis 0, the batch axis, on the first shard's device.
+        Subgraphs (If/Loop/Scan) run shard by shard."""
+        envs = [self._env(p, inp) for p, inp in zip(params, inputs)]
         self.counts = {"device": 0, "host": 0}
-        self._run_nodes(self.graph.nodes, vals, self.output_names)
-        return {n: vals[n] for n in self.output_names}
+        nodes = self.graph.nodes
+        for node, free in zip(nodes, self._free_plan(nodes, self.output_names)):
+            on_device = any(isinstance(envs[0][i], torch.Tensor) for i in node.inputs if i)
+            if on_device and node.op_type == "DynamicQuantizeLinear" and len(envs) > 1:
+                self._dql_sharded(node, envs)
+            elif on_device and len(envs) > 1 and _mixes_rows(node, envs[0]):
+                self._run_joined(node, envs)
+            else:
+                for vals in envs:
+                    self._run_node(node, vals)
+            for vals in envs:
+                for name in free:
+                    vals.pop(name, None)
+        return [{n: vals[n] for n in self.output_names} for vals in envs]
+
+    def _dql_sharded(self, node: "OnnxNode", envs) -> None:
+        xs = [vals[node.inputs[0]].to(torch.float32) for vals in envs]
+        dev0 = xs[0].device
+        lo, hi = torch.amin(xs[0]), torch.amax(xs[0])
+        for x in xs[1:]:
+            lo = torch.minimum(lo, torch.amin(x).to(dev0))
+            hi = torch.maximum(hi, torch.amax(x).to(dev0))
+        for x, vals in zip(xs, envs):
+            out = _dql_codes(x, lo.to(x.device), hi.to(x.device))
+            for name, o in zip(node.outputs, out):
+                if name:
+                    vals[name] = o
+            self.counts["device"] += 1
+
+    def _run_joined(self, node: "OnnxNode", envs) -> None:
+        """The node once on every shard's inputs joined along axis 0; an
+        output with the joined row count splits back into the shards, any
+        other output is handed to each of them."""
+        first = [envs[0][i] if i else None for i in node.inputs]
+        dev0 = next(a.device for a in first if isinstance(a, torch.Tensor))
+        rows = [next(vals[i].shape[0] for i in node.inputs
+                     if i and isinstance(vals[i], torch.Tensor)) for vals in envs]
+        joined: Dict[str, Any] = {"": None}
+        for i, a in zip(node.inputs, first):
+            if i:
+                joined[i] = (torch.cat([vals[i].to(dev0) for vals in envs])
+                             if isinstance(a, torch.Tensor) else a)
+        self._run_node(node, joined)
+        for name in node.outputs:
+            if not name:
+                continue
+            o = joined[name]
+            parts = (torch.split(o, rows) if isinstance(o, torch.Tensor) and o.dim()
+                     and o.shape[0] == sum(rows) else [o] * len(envs))
+            for vals, part in zip(envs, parts):
+                dev = next((vals[i].device for i in node.inputs
+                            if i and isinstance(vals[i], torch.Tensor)), dev0)
+                vals[name] = part.to(dev) if isinstance(part, torch.Tensor) else part
 
     def _free_plan(self, nodes, keep) -> List[List[str]]:
         """For each node, the values whose last use it is (none of ``keep``):
@@ -850,8 +921,14 @@ def _dql(node, x):
     equal the JAX package's bit for bit: the same f32 operations in the
     same order (divide by the scale, round half to even, clip)."""
     x = x.to(torch.float32)
-    mn = torch.clamp_max(torch.amin(x), 0.0)
-    mx = torch.clamp_min(torch.amax(x), 0.0)
+    return _dql_codes(x, torch.amin(x), torch.amax(x))
+
+
+def _dql_codes(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor):
+    """DynamicQuantizeLinear of f32 x with the range [lo, hi] (its own, or
+    the whole batch's under ``call_sharded``)."""
+    mn = torch.clamp_max(lo, 0.0)
+    mx = torch.clamp_min(hi, 0.0)
     # a tensor divisor: PyTorch's CUDA division by a Python scalar multiplies
     # by its reciprocal, which rounds otherwise
     scale = (mx - mn) / torch.full_like(mx, 255.0)
@@ -859,6 +936,36 @@ def _dql(node, x):
     zp = torch.clamp(torch.round(0.0 - mn / scale), 0, 255).to(torch.uint8)
     q = torch.clamp(torch.round(x / scale) + zp.to(torch.float32), 0, 255).to(torch.uint8)
     return q, scale, zp
+
+
+# The handlers that mix the rows of axis 0, with the axis (or axes) each
+# reads and its default; a node mixes the batch when that axis is 0 or, for
+# the reductions, when it reduces every axis. DynamicQuantizeLinear (the
+# whole tensor) and Size (the whole tensor's count) always do.
+_AXIS_OPS = {"ArgMax": 0, "ArgMin": 0, "Softmax": -1, "LogSoftmax": -1, "Hardmax": -1,
+             "TopK": -1, "LpNormalization": -1, "LayerNormalization": -1}
+
+
+def _mixes_rows(node: "OnnxNode", vals: Dict[str, Any]) -> bool:
+    t = node.op_type
+    if t in ("DynamicQuantizeLinear", "Size"):
+        return True
+    x = vals.get(node.inputs[0]) if node.inputs else None
+    rank = x.dim() if isinstance(x, torch.Tensor) else 0
+    if not rank:
+        return False
+    if t in _AXIS_OPS:
+        return int(node.attrs.get("axis", _AXIS_OPS[t])) % rank == 0
+    if t == "CumSum":
+        return int(np.asarray(_static(vals[node.inputs[1]], "CumSum axis")).item()) % rank == 0
+    if t.startswith("Reduce"):
+        axes = node.attrs.get("axes")
+        if len(node.inputs) > 1 and node.inputs[1]:
+            axes = np.asarray(_static(vals[node.inputs[1]], "Reduce axes")).reshape(-1)
+        if axes is None or len(axes) == 0:
+            return not node.attrs.get("noop_with_empty_axes", 0)
+        return any(int(a) % rank == 0 for a in axes)
+    return False
 
 
 def _s8(t: torch.Tensor) -> Tuple[torch.Tensor, int]:

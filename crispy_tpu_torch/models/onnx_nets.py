@@ -19,10 +19,37 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..parallel import data_sharding, gather
 from ..dsp.fbank import fbank
 from .onnx_exec import OnnxRunner
 
 WINDOW_SAMPLES = 160000  # 10 s at 16 kHz, the segmentation window
+
+
+def _weights(runner: OnnxRunner, dev: torch.device):
+    """The runner's weights on ``dev`` at once, and on any other device at
+    its first use there (a mesh's rows)."""
+    bigs = {dev: runner.lift_big_params(dev)}
+
+    def on(d: torch.device) -> dict:
+        if d not in bigs:
+            bigs[d] = runner.lift_big_params(d)
+        return bigs[d]
+
+    return on
+
+
+def _run_rows(runner: OnnxRunner, on, name: str, x: torch.Tensor, mesh) -> torch.Tensor:
+    """The graph's first output for the batch x (its input ``name``): one
+    call, or with a ``parallel.Mesh`` x padded to dp by its last row, one
+    lockstep call per data row (``OnnxRunner.call_sharded``: a node that
+    mixes rows sees them all), gathered back on x's device and cut."""
+    out = runner.output_names[0]
+    if mesh is None:
+        return runner(on(x.device), **{name: x})[out]
+    parts = data_sharding(mesh, x, pad="edge")
+    outs = runner.call_sharded([on(p.device) for p in parts], [{name: p} for p in parts])
+    return gather([o[out] for o in outs], x.device, x.shape[0])
 
 
 def _first_input(runner: OnnxRunner):
@@ -44,11 +71,11 @@ def segmentation_runner(path, device=None) -> Callable[[np.ndarray], np.ndarray]
     runner = OnnxRunner.load(path).validate()
     name, _, shape = _first_input(runner)
     rank = len(shape) if shape else 3
-    big = runner.lift_big_params(dev)
+    on = _weights(runner, dev)
 
-    def forward(windows: torch.Tensor) -> torch.Tensor:
+    def forward(windows: torch.Tensor, mesh=None) -> torch.Tensor:
         x = windows[:, None, :] if rank == 3 else windows
-        y = runner(big, **{name: x})[runner.output_names[0]]
+        y = _run_rows(runner, on, name, x, mesh)
         return y[None] if y.ndim == 2 else y
 
     @torch.no_grad()
@@ -57,11 +84,12 @@ def segmentation_runner(path, device=None) -> Callable[[np.ndarray], np.ndarray]
         return forward(x).cpu().numpy()
 
     @torch.no_grad()
-    def from_device(dev_i16: torch.Tensor) -> np.ndarray:
+    def from_device(dev_i16: torch.Tensor, mesh=None) -> np.ndarray:
         """The flat int16 recording on the device (padded to a window
-        multiple) → [W, F, C]; the windows are a reshape of it there."""
+        multiple) → [W, F, C]; the windows are a reshape of it there. With a
+        ``parallel.Mesh`` they split over its data rows."""
         x = dev_i16.to(dev).float().mul_(1.0 / 32768.0)
-        return forward(x.reshape(-1, WINDOW_SAMPLES)).cpu().numpy()
+        return forward(x.reshape(-1, WINDOW_SAMPLES), mesh).cpu().numpy()
 
     call.from_device = from_device
     return call
@@ -86,19 +114,19 @@ def embedding_runner(path, feat_dim: int = 80,
     name, _, shape = _first_input(runner)
     if shape and len(shape) not in (2, 3):
         raise ValueError(f"unexpected embedding input rank {len(shape)}")
-    big = runner.lift_big_params(dev)
+    on = _weights(runner, dev)
 
-    def run_audio(audio: torch.Tensor) -> torch.Tensor:
+    def run_audio(audio: torch.Tensor, mesh=None) -> torch.Tensor:
         feats = fbank(audio, feat_dim)
         # WeSpeaker applies per-utterance CMN (subtract the feature mean)
         feats = feats - feats.mean(dim=1, keepdim=True)
-        return runner(big, **{name: feats.float()})[runner.output_names[0]]
+        return _run_rows(runner, on, name, feats.float(), mesh)
 
-    def gather(buckets: Dict[int, List[int]], rows) -> np.ndarray:
+    def collect(buckets: Dict[int, List[int]], rows, mesh=None) -> np.ndarray:
         """Each bucket's embeddings, in the segments' order, in one copy."""
         order, parts = [], []
         for n, idxs in buckets.items():
-            parts.append(run_audio(rows(n, idxs)))
+            parts.append(run_audio(rows(n, idxs), mesh))
             order += idxs
         embs = torch.cat(parts)
         out = torch.empty_like(embs)
@@ -112,14 +140,16 @@ def embedding_runner(path, feat_dim: int = 80,
         buckets: Dict[int, List[int]] = {}
         for i, seg in enumerate(segments):
             buckets.setdefault(len(seg), []).append(i)
-        return gather(buckets, lambda _n, idxs: torch.from_numpy(
+        return collect(buckets, lambda _n, idxs: torch.from_numpy(
             np.stack([np.asarray(segments[i], np.float32) for i in idxs])).to(dev))
 
     @torch.no_grad()
-    def from_device(dev_i16: torch.Tensor, ranges) -> np.ndarray:
+    def from_device(dev_i16: torch.Tensor, ranges, mesh=None) -> np.ndarray:
         """[(sample_start, sample_end)] chunk ranges over the flat int16
         recording on the device → [N, D], the chunks sliced there (a slice
-        that would run past the end starts earlier, dynamic_slice's rule)."""
+        that would run past the end starts earlier, dynamic_slice's rule).
+        With a ``parallel.Mesh`` each bucket's chunks split over its data
+        rows."""
         if not len(ranges):
             return np.zeros((0, 0), np.float32)
         x = dev_i16.to(dev)
@@ -133,7 +163,7 @@ def embedding_runner(path, feat_dim: int = 80,
                    + torch.arange(n, device=dev)[None, :])
             return x[idx].float().mul_(1.0 / 32768.0)
 
-        return gather(buckets, rows)
+        return collect(buckets, rows, mesh)
 
     call.from_device = from_device
     return call

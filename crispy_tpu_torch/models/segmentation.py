@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import data_sharding, gather, module_on
 from .carry import load_params
 
 WINDOW_SAMPLES = 160000
@@ -133,12 +134,18 @@ class SegmentationModel(nn.Module):
         return self.forward(x.to(self.device)).cpu().numpy()
 
     @torch.no_grad()
-    def from_device(self, dev_i16: torch.Tensor) -> np.ndarray:
+    def from_device(self, dev_i16: torch.Tensor, mesh=None) -> np.ndarray:
         """The one-upload route: the flat int16 recording on the device
         (padded to a 10 s window multiple) → [W, 589, C] logits; the windows
-        are a reshape of it there."""
+        are a reshape of it there. With a ``parallel.Mesh`` the windows split
+        over its data rows (a copy of the net on each distinct device)."""
         x = dev_i16.to(self.device).float().mul_(1.0 / 32768.0)
-        return self.forward(x.reshape(-1, WINDOW_SAMPLES)).cpu().numpy()
+        w = x.reshape(-1, WINDOW_SAMPLES)
+        if mesh is None:
+            return self.forward(w).cpu().numpy()
+        parts = [module_on(self, p.device).forward(p)
+                 for p in data_sharding(mesh, w, pad="edge")]
+        return gather(parts, self.device, w.shape[0]).cpu().numpy()
 
 
 def init_random(cfg: SegmentationConfig = SegmentationConfig(), seed: int = 0) -> Dict[str, np.ndarray]:

@@ -34,9 +34,9 @@ def validation_utterance() -> np.ndarray:
 
 
 def validate_model(model_id: str, model_manager, device=None,
-                   language: str = "en", engine=None) -> dict:
-    """Load the model's real bundle on ``device`` (default the card) and
-    decode the committed utterance.
+                   language: str = "en", engine=None, mesh=None) -> dict:
+    """Load the model's real bundle on ``device`` (default the card), or over
+    ``mesh`` (``load_engine``'s), and decode the committed utterance.
 
     Returns a JSON-able golden record: the decoded text, word segments,
     and the bundle's file inventory hash (so a re-downloaded bundle that
@@ -44,7 +44,7 @@ def validate_model(model_id: str, model_manager, device=None,
     from ..engine.transcription import load_engine
 
     if engine is None:
-        engine = load_engine(model_id, model_manager, device=device)
+        engine = load_engine(model_id, model_manager, device=device, mesh=mesh)
     audio = validation_utterance()
     # 30 s chunk contract: pad the 10 s utterance like the pipeline does
     chunk = np.zeros(30 * 16000, np.float32)

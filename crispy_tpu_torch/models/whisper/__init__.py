@@ -14,9 +14,10 @@ import torch
 
 from ...device import resolve_device
 from ...dsp.mel import log_mel_spectrogram
+from ...parallel import check_device, gather, pad_rows
 from .model import (
-    CONFIGS, WhisperConfig, beam_decode, decode_logits, encode, greedy_decode,
-    sample_decode,
+    CONFIGS, Whisper, WhisperConfig, beam_decode, decode_logits, encode, greedy_decode,
+    sample_decode, shard_module,
 )
 from .tokenizer import WhisperTokenizer
 from .weights import from_hf_state_dict, init_random, load_ggml, load_hf, params_to_module
@@ -24,7 +25,12 @@ from .weights import from_hf_state_dict, init_random, load_ggml, load_hf, params
 
 class WhisperModel:
     """Weights in a ``Whisper`` module on one device + config + tokenizer,
-    with a batched transcribe API. ``device=None`` is the card."""
+    with a batched transcribe API. ``device=None`` is the card.
+
+    ``shard_to(mesh)`` spreads it over a ``parallel.Mesh``: every transcribe
+    path then splits its chunk batch over the data rows (padded by
+    repeating the last chunk) and runs tensor-parallel over each row's model
+    devices, the outputs gathered back in chunk order."""
 
     def __init__(self, params, cfg: WhisperConfig, tokenizer: WhisperTokenizer,
                  name: str = "whisper", device=None):
@@ -33,6 +39,46 @@ class WhisperModel:
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.name = name
+        self.mesh = None
+        self.replicas: List[Whisper] = [self.model]  # one per data row
+
+    # -- multi-device ---------------------------------------------------------
+    def shard_to(self, mesh) -> "WhisperModel":
+        """TP over the mesh's model axis (``parallel.asr.whisper_param_spec``),
+        DP over its data axis. Rows with the same devices share one replica,
+        and a replica shares the weights' storage on their own device."""
+        check_device(mesh, self.device)
+        built = {}
+        for row in mesh.grid:
+            if row not in built:
+                built[row] = shard_module(self.model, row)
+        self.replicas = [built[row] for row in mesh.grid]
+        self.mesh = mesh
+        return self
+
+    def _shard_batch(self, *arrays) -> Tuple[List[tuple], int]:
+        """Split arrays (leading batch axis) over the data rows, the batch
+        padded to a multiple of dp by repeating its last row. Returns
+        ([(replica, first row, *pieces)], B)."""
+        B = arrays[0].shape[0]
+        dp = len(self.replicas)
+        b = -(-B // dp)
+        pieces = [pad_rows(a, b * dp, "edge").chunk(dp) for a in arrays]
+        return [(rep, i * b) + tuple(p[i].to(rep.decoder.ln.weight.device) for p in pieces)
+                for i, rep in enumerate(self.replicas)], B
+
+    def _gather(self, outs, B: int):
+        """Per-shard output tuples → tuples of tensors on the first device,
+        cut to the batch's B rows."""
+        return tuple(gather(parts, self.device, B) for parts in zip(*outs))
+
+    def decode_logits(self, audio_16k, tokens) -> torch.Tensor:
+        """Teacher-forced logits [B, T, V] of tokens [B, T] on chunks [B, T']."""
+        mel = log_mel_spectrogram(self._chunks(audio_16k), n_mels=self.cfg.n_mels,
+                                  pad_to_chunk=True)
+        shards, B = self._shard_batch(mel, tokens.to(self.device))
+        return self._gather([(decode_logits(rep, t, encode(rep, m)),)
+                             for rep, _, m, t in shards], B)[0]
 
     # -- constructors ---------------------------------------------------------
     @staticmethod
@@ -93,13 +139,14 @@ class WhisperModel:
         beam > 1 switches to beam search with length-normalized ranking."""
         tok = self.tokenizer
         mel, prompt = self._mel_prompt(audio_16k, self._prompt_ids(language, initial_prompt))
+        shards, B = self._shard_batch(mel, prompt)
         if beam > 1:
-            tokens, lengths, _ = beam_decode(self.model, mel, prompt, beam=beam,
-                                             max_new=max_new, eot=tok.eot)
+            outs = [beam_decode(rep, m, p, beam=beam, max_new=max_new, eot=tok.eot)[:2]
+                    for rep, _, m, p in shards]
         else:
-            tokens, lengths = greedy_decode(self.model, mel, prompt, max_new=max_new,
-                                            eot=tok.eot)
-        tokens, lengths = tokens.cpu().numpy(), lengths.cpu().numpy()
+            outs = [greedy_decode(rep, m, p, max_new=max_new, eot=tok.eot)
+                    for rep, _, m, p in shards]
+        tokens, lengths = (t.cpu().numpy() for t in self._gather(outs, B))
         return [tok.decode(tokens[b, : lengths[b]]) for b in range(tokens.shape[0])]
 
     def transcribe_chunks_robust(
@@ -131,17 +178,22 @@ class WhisperModel:
         # no-speech prob is read at the SOT position (≠ 0 when an
         # initial_prompt prepends <|startofprev|> context)
         sot_index = prompt_ids.index(tok.sot) if tok.sot in prompt_ids else 0
+        shards, _ = self._shard_batch(mel, prompt)
         # encode once: the rungs differ only in sampling temperature
-        enc = encode(self.model, mel)
+        encs = [encode(rep, m) for rep, _, m, _ in shards]
+        # a shard draws each step's noise for the whole batch from its own
+        # generator with the rung's seed, and keeps its rows (noise_rows)
+        rows = None if self.mesh is None else B
 
         results: List[Optional[str]] = [None] * B
         for t_i, temp in enumerate(temperatures):
-            gen = torch.Generator(device=self.device).manual_seed(seed + t_i)
-            tokens, lengths, lp_sum, ns_prob = sample_decode(
-                self.model, enc, prompt, float(temp), gen, ns_id, sot_index,
-                max_new=max_new, eot=tok.eot)
-            tokens, lengths = tokens.cpu().numpy(), lengths.cpu().numpy()
-            lp_sum, ns_prob = lp_sum.cpu().numpy(), ns_prob.cpu().numpy()
+            outs = []
+            for (rep, start, _, p), enc in zip(shards, encs):
+                gen = torch.Generator(device=self.device).manual_seed(seed + t_i)
+                outs.append(sample_decode(
+                    rep, enc, p, float(temp), gen, ns_id, sot_index, max_new=max_new,
+                    eot=tok.eot, noise_rows=None if rows is None else (start, rows)))
+            tokens, lengths, lp_sum, ns_prob = (t.cpu().numpy() for t in self._gather(outs, B))
             last = t_i == len(temperatures) - 1
             for b in range(B):
                 if results[b] is not None:
@@ -174,8 +226,9 @@ class WhisperModel:
         if offsets_seconds is None:
             offsets_seconds = [0.0] * B
         dur = a.shape[1] / 16000.0
-        tokens, lengths = greedy_decode(self.model, mel, prompt, max_new=max_new, eot=tok.eot)
-        tokens, lengths = tokens.cpu().numpy(), lengths.cpu().numpy()
+        shards, _ = self._shard_batch(mel, prompt)
+        outs = [greedy_decode(rep, m, p, max_new=max_new, eot=tok.eot) for rep, _, m, p in shards]
+        tokens, lengths = (t.cpu().numpy() for t in self._gather(outs, B))
         return [
             parse_timestamp_segments(
                 tokens[b, : int(lengths[b])].tolist(), tok,

@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -107,7 +107,11 @@ def _attn(q, k, v, mask=None):
 
 
 class Attention(nn.Module):
-    """Multi-head attention; k has no bias (Whisper)."""
+    """Multi-head attention; k has no bias (Whisper).
+
+    Once sharded (``shard_module``), ``tp`` holds the tensor-parallel
+    pieces: each computes its own heads on its device, and ``reduce`` adds
+    their row-parallel partial products back on the input's device."""
 
     def __init__(self, d: int, n_head: int):
         super().__init__()
@@ -116,16 +120,95 @@ class Attention(nn.Module):
         self.k = nn.Linear(d, d, bias=False)
         self.v = nn.Linear(d, d)
         self.out = nn.Linear(d, d)
+        self.tp: Optional[List["_AttnPiece"]] = None
 
     def heads(self, x: torch.Tensor) -> torch.Tensor:  # [B, T, D] -> [B, H, T, hd]
         B, T, D = x.shape
         return x.view(B, T, self.n_head, D // self.n_head).transpose(1, 2)
 
+    def parts(self) -> list:
+        """The attention's parts: itself unsharded, else its TP pieces."""
+        return [_Whole(self)] if self.tp is None else self.tp
+
+    def reduce(self, partials: List[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+        return _reduce(partials, x, None if self.tp is None else self.out.bias)
+
     def forward(self, x, xa=None, mask=None):
         """Block attention without a cache; xa is the cross-attention memory."""
         src = x if xa is None else xa
-        o = _attn(self.heads(self.q(x)), self.heads(self.k(src)), self.heads(self.v(src)), mask)
-        return self.out(_merge(o))
+        return self.reduce([p.out(_attn(p.q(x), p.k(src), p.v(src), _to(mask, p.device)))
+                            for p in self.parts()], x)
+
+
+class _Whole:
+    """An unsharded attention as its one part: q, k and v as heads
+    [B, H, T, hd], and the output projection with its bias."""
+
+    def __init__(self, a: Attention):
+        self.a = a
+        self.device = a.q.weight.device
+
+    def q(self, x):
+        return self.a.heads(self.a.q(x))
+
+    def k(self, x):
+        return self.a.heads(self.a.k(x))
+
+    def v(self, x):
+        return self.a.heads(self.a.v(x))
+
+    def out(self, o):
+        return self.a.out(_merge(o))
+
+
+class _AttnPiece:
+    """Heads [j·H/tp, (j+1)·H/tp) of an attention on ``device``: the
+    column-parallel rows of q, k and v and the row-parallel columns of out
+    (views of the module's weights where the device is theirs)."""
+
+    def __init__(self, a: Attention, j: int, tp: int, device: torch.device):
+        c = a.q.weight.shape[0] // tp
+        cols = slice(j * c, (j + 1) * c)
+        self.device, self.n_head = device, a.n_head // tp
+        self.wq = a.q.weight.detach()[cols].to(device)
+        self.bq = a.q.bias.detach()[cols].to(device)
+        self.wk = a.k.weight.detach()[cols].to(device)
+        self.wv = a.v.weight.detach()[cols].to(device)
+        self.bv = a.v.bias.detach()[cols].to(device)
+        self.wo = a.out.weight.detach()[:, cols].to(device)
+
+    def _heads(self, x):
+        B, T, D = x.shape
+        return x.view(B, T, self.n_head, D // self.n_head).transpose(1, 2)
+
+    def q(self, x):
+        return self._heads(F.linear(x.to(self.device), self.wq, self.bq))
+
+    def k(self, x):
+        return self._heads(F.linear(x.to(self.device), self.wk))
+
+    def v(self, x):
+        return self._heads(F.linear(x.to(self.device), self.wv, self.bv))
+
+    def out(self, o):
+        return F.linear(_merge(o), self.wo)
+
+
+def _to(t: Optional[torch.Tensor], device: torch.device) -> Optional[torch.Tensor]:
+    return None if t is None else t.to(device)
+
+
+def _reduce(partials: List[torch.Tensor], x: torch.Tensor,
+            bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """Row-parallel partial products added in piece order on x's device,
+    then the bias; an unsharded layer's one output (its bias included)
+    passes through."""
+    if bias is None:
+        return partials[0]
+    acc = partials[0].to(x.device)
+    for p in partials[1:]:
+        acc = acc + p.to(x.device)
+    return acc + bias
 
 
 class MLP(nn.Module):
@@ -133,9 +216,14 @@ class MLP(nn.Module):
         super().__init__()
         self.fc1 = nn.Linear(d, 4 * d)
         self.fc2 = nn.Linear(4 * d, d)
+        # once sharded: (device, fc1 rows, fc1 bias, fc2 columns) per piece
+        self.tp: Optional[list] = None
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x), approximate="none"))
+        if self.tp is None:
+            return self.fc2(F.gelu(self.fc1(x), approximate="none"))
+        return _reduce([F.linear(F.gelu(F.linear(x.to(d), w1, b1), approximate="none"), w2)
+                        for d, w1, b1, w2 in self.tp], x, self.fc2.bias)
 
 
 class Block(nn.Module):
@@ -247,18 +335,43 @@ def _kv_dtype() -> torch.dtype:
 
 
 def _init_cache(model: Whisper, audio: torch.Tensor, max_len: int):
-    """Preallocate self-attn KV [L, B, H, max_len, hd]; precompute cross KV."""
+    """Preallocate self-attn KV [L, B, H, max_len, hd]; precompute cross KV.
+    Sharded, each is a list with one cache per TP piece, holding that
+    piece's heads on its device (``_each`` reads both forms)."""
     cfg = model.cfg
     B = audio.shape[0]
     hd = cfg.n_text_state // cfg.n_text_head
     dt = _kv_dtype()
-    self_k = torch.zeros((cfg.n_text_layer, B, cfg.n_text_head, max_len, hd),
-                         dtype=dt, device=audio.device)
-    self_v = torch.zeros_like(self_k)
     blocks = model.decoder.blocks
-    cross_k = torch.stack([b.cross.heads(b.cross.k(audio)) for b in blocks]).to(dt)
-    cross_v = torch.stack([b.cross.heads(b.cross.v(audio)) for b in blocks]).to(dt)
+    self_k, self_v, cross_k, cross_v = [], [], [], []
+    for j, part in enumerate(blocks[0].attn.parts()):
+        H = part.n_head if isinstance(part, _AttnPiece) else cfg.n_text_head
+        self_k.append(torch.zeros((cfg.n_text_layer, B, H, max_len, hd), dtype=dt,
+                                  device=part.device))
+        self_v.append(torch.zeros_like(self_k[-1]))
+        cross_k.append(torch.stack([b.cross.parts()[j].k(audio) for b in blocks]).to(dt))
+        cross_v.append(torch.stack([b.cross.parts()[j].v(audio) for b in blocks]).to(dt))
+    if blocks[0].attn.tp is None:
+        return self_k[0], self_v[0], cross_k[0], cross_v[0]
     return self_k, self_v, cross_k, cross_v
+
+
+def _each(cache) -> list:
+    """A KV cache's per-part tensors: the one tensor unsharded, the list of
+    TP pieces sharded."""
+    return cache if isinstance(cache, list) else [cache]
+
+
+def _map_cache(fn, cache):
+    return [fn(t) for t in cache] if isinstance(cache, list) else fn(cache)
+
+
+def _cross(blk, x, cross_k, cross_v, i: int) -> torch.Tensor:
+    """The block's cross-attention over the cached cross K/V of layer i."""
+    c = blk.cross
+    h = blk.lnx(x)
+    return c.reduce([p.out(_attn(p.q(h), ck[i], cv[i]))
+                     for p, ck, cv in zip(c.parts(), _each(cross_k), _each(cross_v))], x)
 
 
 def _prefill(model: Whisper, prompt, self_k, self_v, cross_k, cross_v):
@@ -272,13 +385,15 @@ def _prefill(model: Whisper, prompt, self_k, self_v, cross_k, cross_v):
     for i, blk in enumerate(dec.blocks):
         a = blk.attn
         h = blk.ln1(x)
-        kh = a.heads(a.k(h)).to(self_k.dtype)  # rounded before its own use
-        vh = a.heads(a.v(h)).to(self_v.dtype)
-        self_k[i, :, :, :P] = kh
-        self_v[i, :, :, :P] = vh
-        x = x + a.out(_merge(_attn(a.heads(a.q(h)), kh, vh, mask)))
-        c = blk.cross
-        x = x + c.out(_merge(_attn(c.heads(c.q(blk.lnx(x))), cross_k[i], cross_v[i])))
+        partials = []
+        for p, sk, sv in zip(a.parts(), _each(self_k), _each(self_v)):
+            kh = p.k(h).to(sk.dtype)  # rounded before its own use
+            vh = p.v(h).to(sv.dtype)
+            sk[i, :, :, :P] = kh
+            sv[i, :, :, :P] = vh
+            partials.append(p.out(_attn(p.q(h), kh, vh, mask.to(p.device))))
+        x = x + a.reduce(partials, x)
+        x = x + _cross(blk, x, cross_k, cross_v, i)
         x = x + blk.mlp(blk.ln2(x))
     return dec.logits(x), self_k, self_v
 
@@ -296,20 +411,22 @@ def _decode_step(model: Whisper, tok, pos: int, self_k, self_v, cross_k, cross_v
     the step's K/V are written into the caches in place."""
     dec = model.decoder
     x = dec.embed(tok[:, None], pos)
-    pos_mask = torch.arange(max_len, device=x.device) <= pos
+    pos_mask = {sk.device: torch.arange(max_len, device=sk.device) <= pos
+                for sk in _each(self_k)}
     for i, blk in enumerate(dec.blocks):
         a = blk.attn
         h = blk.ln1(x)
-        self_k[i, :, :, pos] = a.heads(a.k(h))[:, :, 0].to(self_k.dtype)
-        self_v[i, :, :, pos] = a.heads(a.v(h))[:, :, 0].to(self_v.dtype)
-        q = a.heads(a.q(h))  # [B, H, 1, hd]
-        scale = q.shape[-1] ** -0.25
-        logits = torch.matmul(q * scale, _scaled(self_k[i], scale).float().transpose(-1, -2))
-        logits = torch.where(pos_mask, logits, -1e30)
-        o = torch.matmul(torch.softmax(logits, dim=-1), self_v[i].float())
-        x = x + a.out(_merge(o))
-        c = blk.cross
-        x = x + c.out(_merge(_attn(c.heads(c.q(blk.lnx(x))), cross_k[i], cross_v[i])))
+        partials = []
+        for p, sk, sv in zip(a.parts(), _each(self_k), _each(self_v)):
+            sk[i, :, :, pos] = p.k(h)[:, :, 0].to(sk.dtype)
+            sv[i, :, :, pos] = p.v(h)[:, :, 0].to(sv.dtype)
+            q = p.q(h)  # [B, H', 1, hd]
+            scale = q.shape[-1] ** -0.25
+            logits = torch.matmul(q * scale, _scaled(sk[i], scale).float().transpose(-1, -2))
+            logits = torch.where(pos_mask[sk.device], logits, -1e30)
+            partials.append(p.out(torch.matmul(torch.softmax(logits, dim=-1), sv[i].float())))
+        x = x + a.reduce(partials, x)
+        x = x + _cross(blk, x, cross_k, cross_v, i)
         x = x + blk.mlp(blk.ln2(x))
     return dec.logits(x)[:, 0, :], self_k, self_v
 
@@ -376,13 +493,18 @@ def sample_decode(
     sot_index: int = 0,
     max_new: int = 224,
     eot: Optional[int] = None,
+    noise_rows: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Decode at a temperature, with the quality metrics of the fallback
     ladder.
 
     temperature 0 → argmax (equal to greedy_decode); > 0 → a draw from
     softmax(logits / temperature) by the Gumbel-max trick on ``generator``
-    (on the decode device; the JAX package's ``jax.random`` draws differ).
+    (on its device; the JAX package's ``jax.random`` draws differ).
+    ``noise_rows=(start, total)`` makes a shard of a batch draw as the whole
+    batch does: each step draws the noise of all ``total`` rows from the
+    generator and keeps rows start.. (rows past the batch, its padding, take
+    the last row's), so a sharded decode samples what the unsharded one does.
     Returns (tokens [B, max_new], lengths [B], sum_logprob [B] — log-probs
     of the emitted tokens incl. the closing eot, the whisper avg_logprob
     numerator — and no_speech_prob [B], the probability mass on
@@ -402,7 +524,7 @@ def sample_decode(
 
     def pick(logits):
         if temperature > 0:
-            gumbel = -torch.log(torch.empty_like(logits).exponential_(generator=generator))
+            gumbel = -torch.log(_exponential(logits, generator, noise_rows))
             tok = (logits / temperature + gumbel).argmax(-1)
         else:
             tok = logits.argmax(-1)
@@ -422,6 +544,18 @@ def sample_decode(
         toks.append(tok)
     tokens = torch.stack(toks, dim=1)
     return tokens, _lengths(tokens, eot_id, max_new), lp_sum, no_speech_prob
+
+
+def _exponential(logits: torch.Tensor, generator, noise_rows) -> torch.Tensor:
+    """Exp(1) noise shaped like logits [B, V] (see sample_decode)."""
+    if noise_rows is None:
+        return torch.empty_like(logits).exponential_(generator=generator)
+    start, total = noise_rows
+    full = torch.empty((total, logits.shape[1]), dtype=logits.dtype,
+                       device=generator.device).exponential_(generator=generator)
+    idx = torch.clamp(torch.arange(start, start + logits.shape[0], device=full.device),
+                      max=total - 1)
+    return full[idx].to(logits.device)
 
 
 def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -459,7 +593,8 @@ def beam_decode(
     # Row b*beam + j is beam j of batch item b. Cross K/V are computed once
     # per batch row and the head tensors repeated.
     self_k, self_v, cross_k, cross_v = (
-        t.repeat_interleave(beam, dim=1) for t in _init_cache(model, audio, max_len))
+        _map_cache(lambda t: t.repeat_interleave(beam, dim=1), c)
+        for c in _init_cache(model, audio, max_len))
     logits_all, self_k, self_v = _prefill(
         model, prompt.repeat_interleave(beam, dim=0), self_k, self_v, cross_k, cross_v)
     lp = torch.log_softmax(logits_all[:, -1], dim=-1).reshape(B, beam, V)[:, 0]
@@ -483,8 +618,8 @@ def beam_decode(
         parent = idx // V
         tok = idx % V
         rows = (base + parent).reshape(-1)
-        self_k = self_k.index_select(1, rows)
-        self_v = self_v.index_select(1, rows)
+        self_k = _map_cache(lambda t: t.index_select(1, rows.to(t.device)), self_k)
+        self_v = _map_cache(lambda t: t.index_select(1, rows.to(t.device)), self_v)
         hist = hist.gather(1, parent[..., None].expand(B, beam, max_new))
         hist[:, :, i + 1] = tok
         done = done.gather(1, parent) | (tok == eot_id)
@@ -493,3 +628,46 @@ def beam_decode(
     best = norm.argmax(1)
     rows = torch.arange(B, device=dev)
     return hist[rows, best], lengths_all[rows, best], cum[rows, best]
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel placement
+# ---------------------------------------------------------------------------
+
+def shard_module(model: Whisper, devices: Sequence[torch.device]) -> Whisper:
+    """The model for one data row of a mesh, whose model-axis devices are
+    ``devices``: a ``Whisper`` on devices[0] that shares the weights'
+    storage where they already lie there, with each attention and MLP split
+    into len(devices) pieces where ``parallel.asr.whisper_param_spec``
+    splits its weights (column-parallel q, k, v and fc1, row-parallel out and
+    fc2), piece j on devices[j]."""
+    from ...parallel.asr import whisper_param_spec
+
+    tp = len(devices)
+    with torch.device("meta"):
+        rep = Whisper(model.cfg)
+    rep.load_state_dict({k: v.to(devices[0]) for k, v in model.state_dict().items()},
+                        assign=True)
+
+    def split(name: str, shape) -> bool:
+        spec = whisper_param_spec(name, np.broadcast_to(np.float32(0), shape), tp)
+        return spec == (None, "model")
+
+    for side, blocks in (("enc", rep.encoder.blocks), ("dec", rep.decoder.blocks)):
+        for i, blk in enumerate(blocks):
+            attns = [("attn", blk.attn)] + ([("cross", blk.cross)] if side == "dec" else [])
+            for nm, a in attns:
+                d = a.q.weight.shape[0]
+                if split(f"{side}.{i}.{nm}.q.w", (d, d)):
+                    if a.n_head % tp:
+                        raise ValueError(f"{a.n_head} heads do not split over {tp} devices")
+                    a.tp = [_AttnPiece(a, j, tp, dev) for j, dev in enumerate(devices)]
+            m = blk.mlp
+            d4, d = m.fc1.weight.shape
+            if split(f"{side}.{i}.mlp.fc1.w", (d, d4)):
+                c = d4 // tp
+                m.tp = [(dev, m.fc1.weight.detach()[j * c:(j + 1) * c].to(dev),
+                         m.fc1.bias.detach()[j * c:(j + 1) * c].to(dev),
+                         m.fc2.weight.detach()[:, j * c:(j + 1) * c].to(dev))
+                        for j, dev in enumerate(devices)]
+    return rep

@@ -171,8 +171,8 @@ def test_transcribe_falls_back_to_the_selected_model(capsys, data_root, tmp_path
     seen = []
     eng = type("E", (tr.EngineProtocol,), {
         "transcribe_batch": lambda self, c, language="en": ["hi"] * len(c)})()
-    monkeypatch.setattr(tr, "load_engine",
-                        lambda mid, mm, device=None: seen.append((mid, device.type)) or eng)
+    monkeypatch.setattr(tr, "load_engine", lambda mid, mm, device=None, mesh=None: seen.append(
+        (mid, device.type, tr.resolve_mesh(mesh, device))) or eng)
     wav = wavio.write_wav(tmp_path / "r.wav", 0.1 * np.ones((48000, 1), np.float32), 48000)
     assert cli.main(["models", "set", "moonshine-base"]) == 0
     calls = []
@@ -181,7 +181,7 @@ def test_transcribe_falls_back_to_the_selected_model(capsys, data_root, tmp_path
                         lambda *a, **kw: calls.append(kw) or real_run(*a, **kw))
     capsys.readouterr()
     assert cli.main(["transcribe", str(wav), "--device", "cpu", "--diarize"]) == 0
-    assert seen == [("moonshine-base", "cpu")]
+    assert seen == [("moonshine-base", "cpu", None)]  # the lazy "auto": no mesh on the CPU
     assert calls[0]["diarization"] == {"enabled": True, "max_speakers": 6, "merge_gap": 2.5}
     from crispy_tpu_torch.utils import settings
 

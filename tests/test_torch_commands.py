@@ -43,9 +43,8 @@ def test_full_command_surface_exists(app):
 
 
 def test_public_commands_equal_jax():
-    """The JAX app's resolved_mesh resolves its lazy mesh; the port has no
-    mesh: its engines resolve the card at their first use."""
-    assert public(CrispyApp) == public(JApp) - {"resolved_mesh"}
+    """resolved_mesh included: both apps resolve their lazy "auto" mesh."""
+    assert public(CrispyApp) == public(JApp)
 
 
 def test_signatures_equal_jax():

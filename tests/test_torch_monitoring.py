@@ -10,6 +10,8 @@ versions at the monitoring shapes (one stream, one frame a step, and three
 streams of two frames), and the graphed step to the eager step bit for bit.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -333,6 +335,48 @@ class TestMonitoringEngine:
         assert eng.get_blackhole_status() == {"installed": False, "paths": []}
         assert eng.registry.get_output_devices() == ["Default"]
         assert eng.registry.get_default_devices()["default_input"] == "Synthetic 440Hz"
+
+
+class _SlowProcessor:
+    """A stand-in processor whose push_block takes most of the block budget."""
+
+    def __init__(self, seconds):
+        self.seconds = seconds
+
+    def push_block(self, block):
+        time.sleep(self.seconds)
+        return block
+
+
+@pytest.mark.parametrize("work", [0.6, 0.75])
+def test_realtime_pacing_keeps_to_the_block_deadlines(monkeypatch, work):
+    """N blocks take N budgets ± one budget when the processor takes most of
+    each budget and reading the input and the recording tap take more of
+    it: the loop paces to absolute deadlines, so no part of a block's time
+    is added on top of its budget."""
+    n, blk, rate = 12, 4800, 48000.0  # 100 ms budgets
+    budget = blk / rate
+    monkeypatch.setattr(tmon.NsState, "_build",
+                        lambda self, name, volume: _SlowProcessor(work * budget))
+    dev = finite_device(tmon, n, blk=blk, rate=rate)
+    read = dev.fn
+
+    def slow_read(k):
+        time.sleep(0.15 * budget)
+        return read(k)
+
+    reg = tmon.DeviceRegistry()
+    reg.register(tmon.InputDevice(dev.name, slow_read, dev.rate))
+    eng = tmon.MonitoringEngine(registry=reg, bus=EventBus(), block_samples=blk,
+                                mic_tap=lambda x: time.sleep(0.05 * budget), device="cpu")
+    assert eng.realtime
+    t0 = time.monotonic()
+    eng.start_monitoring("finite", model_name="slow")
+    eng._thread.join(timeout=60)
+    took = time.monotonic() - t0
+    assert not eng.active
+    eng.stop_monitoring()
+    assert abs(took - n * budget) <= budget, (took, n * budget)
 
 
 # ---------------------------------------------------------------------------

@@ -224,8 +224,10 @@ def test_snr_improvement_builtin_matches_jax(jparams, tparams):
 
 
 def test_train_model_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="item 12c"):
-        tt.train_model(steps=1, mesh=object(), device="cpu")
+    from crispy_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(NotImplementedError, match="item 12c-ii"):
+        tt.train_model(steps=1, mesh=make_mesh(devices=["cpu"] * 2), device="cpu")
 
 
 def test_entry_points_need_a_card():
