@@ -145,8 +145,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
      512, V 5248, eos's logit column zero so every row decodes to max_new
      unless the loop guard ends it; random weights from seed 0, no
      params.npz) through ``load_engine``, which must give the port's
-     ``OnnxEncDecEngine``: B=8 and B=16 x 30 s, a warm-up then 3 calls (RTF,
-     median, spread), decode steps by bucket, tokens per row, the encoder by
+     ``OnnxEncDecEngine``: B=8 and B=16 x 30 s, a warm-up then 1 timed call
+     (RTF), decode steps by bucket, tokens per row, the encoder by
      CUDA events, executor nodes a step, launches a step and the device's
      busy share over 8 decode steps (torch.profiler), peak memory; then on 2
      x 10 s the encoder card vs CPU (5e-2 of its max) and greedy and beam-4
@@ -175,14 +175,14 @@ Phases, each printed on its own lines; any failure exits non-zero:
      with equal pitch index, gains on bands above digital silence, the mask,
      pitch indices that differ counted); (b) the masked loss and its
      gradients at train_model's init on that batch, card vs CPU; (c)
-     ``train_model`` in corpus mode, 256 corpus streams, 100 steps, 25 a
+     ``train_model`` in corpus mode, 256 corpus streams, 50 steps, 25 a
      call: each call's wall, ms a step, peak memory, the loss curve (finite,
      falling), K2 and K3 once a step and no other kernel, then one more
      step under torch.profiler (launches a step, the device's busy share);
      (d) five host-mode steps with ``synth_batch``'s share; (e) the held-out
      SNR gain of the packaged model, card vs CPU (K1-K3 launched), and of
-     the 100-step model; (f) ``python -m crispy_tpu_torch.tools.train_rnnoise
-     --steps 50 --corpus-streams 64`` in a process of its own (the saved
+     the 50-step model; (f) ``python -m crispy_tpu_torch.tools.train_rnnoise
+     --steps 25 --corpus-streams 64`` in a process of its own (the saved
      model must load), then ``cli models list`` and ``cli update`` (the
      index a local stand-in).
 
@@ -241,6 +241,26 @@ Phases, each printed on its own lines; any failure exits non-zero:
      ``start_transcription`` with diarization of the phase-8 WAV equal to
      the unsharded app's.
 
+ 17. training over a mesh and several processes on the one card (repeated
+     entries of it; one card shows correctness, not a speed-up): (a)
+     ``make_train_step`` over (2, 1) and (2, 2) against the unsharded step,
+     5 masked steps at B=32 x F=100 from train_model's init draw: losses
+     within 1e-5 relative, parameters within 1e-5 of each tensor's largest
+     |value|, the replicas bit-equal; (b) [14c]'s ``train_model`` call over
+     dp=2 against [14c]'s loss curve (1e-4 relative), K2 and K3 twice a
+     step; (c) two processes started by ``multihost.launch_local`` (each
+     runs this file with ``--rank17c``) share the card under gloo: each
+     feeds its half of a global S=128 x F=500 denoise batch through
+     ``denoise_batch(mesh=mesh.local)``, of a B=8 whisper-base batch (the
+     phase-6 file, 30 s mel, 8 new tokens) through a greedy decode over
+     ``mesh.local``, and runs (a)'s 5 DP steps over the process mesh; here
+     its rows are held to the one-process ``denoise_batch`` (1.5e-4), its
+     tokens to the one-process decode (equal), its losses and parameters
+     to (a)'s unsharded run at (a)'s tolerances and to rank 0's (bit-equal);
+     each rank launched K1-K3 once. The ranks run while (a) and (b) run
+     here: their host walls are printed beside the one-process walls, not
+     as speed-ups.
+
 The Whisper, ASR, diarization and ONNX phases run no hand-written kernel
 (the JAX package's models and executor have no Pallas kernel), so they add
 no row to the kernels line. The training net's backward is autograd in
@@ -248,7 +268,7 @@ plain PyTorch (K1 is forward-only, and the JAX package trains through a
 plain scan); phase 14 runs K2 and K3 in its targets.
 
 Then one JSON line with every kernel's numbers (launches from phases 3, 4,
-9b, 14c, 15 and 16a), and as the last line
+9b, 14c, 15, 16a, 17b and 17c's ranks), and as the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``crispy_tpu``.
 """
 
@@ -340,7 +360,7 @@ ENC_INT8_RTOL = 5e-2
 INT8_TIE_RTOL = 1e-2
 
 ENCDEC_BATCHES = (8, 16)  # phase 13a: 30 s chunks a batch through the canary ONNX bundle
-ENCDEC_RUNS = 2  # phase 13a: timed calls a bucket
+ENCDEC_RUNS = 1  # phase 13a: timed calls a bucket (2 until PR 17 cut it for [17])
 ENCDEC_CHECK_NEW = 48  # phase 13a: tokens a row in the card-vs-CPU decodes (2 x 10 s)
 ENCDEC_PROFILE_STEPS = 8  # phase 13a: decode steps under torch.profiler (its trace of
 #   ~2,300 launches a step takes seconds a step to read back)
@@ -350,10 +370,10 @@ DRILL_TIMEOUT = 900  # phase 13c: seconds for the hour drill's process
 
 TRAIN_B, TRAIN_F = 32, 100  # phase 14: the training tool's defaults, the builtin net's widths
 TRAIN_CORPUS = 256  # phase 14c: corpus streams on the card
-TRAIN_STEPS, TRAIN_SPC = 100, 25  # phase 14c: steps, steps a call
+TRAIN_STEPS, TRAIN_SPC = 50, 25  # phase 14c (and 17b over dp=2): steps, steps a call
 TRAIN_PROFILE_STEPS = 1  # phase 14c: steps under torch.profiler (~20,600 launches a step to read back)
 TRAIN_HOST_STEPS = 5  # phase 14d
-TOOL_STEPS, TOOL_CORPUS = 50, 64  # phase 14f: the training tool in a process of its own
+TOOL_STEPS, TOOL_CORPUS = 25, 64  # phase 14f: the training tool in a process of its own
 # phase 14a, make_batch card vs CPU. Both run the port's f32 HP biquad (a
 # Toeplitz product and a carry scan: cuBLAS against MKL), whose rounding is
 # ~10 at the x32768 scale on strong low-frequency noise; a quiet band's
@@ -3254,8 +3274,8 @@ def train_corpus_run(torch, training, dev, card: str, kernels: dict, probe0: tup
     Beside the times, what the process's state costs them: the launch and
     step probes here against phase 1's (``probe0``) and a new process's at
     this moment, the garbage collector's time and the other threads' CPU
-    during train_model. Returns the model and the kernels' launches in the
-    train_model call."""
+    during train_model. Returns the model, the kernels' launches in the
+    train_model call and its loss curve."""
     import gc
     import threading
 
@@ -3331,17 +3351,17 @@ def train_corpus_run(torch, training, dev, card: str, kernels: dict, probe0: tup
     if any(launches[n] for n in kernels if n not in ("rd_scan", "pitch_window_gather")):
         fail(f"[14c] a kernel off the training path launched: {launches}")
 
-    step, net, opt, sched, pools, pipe_params, idx, snr = last["args"]
+    step, net, opt, sched, shards, join = last["args"]
     n = TRAIN_PROFILE_STEPS
     before = {name: getattr(k, attr) for name, (k, attr) in kernels.items()}
-    prof = profile_call(torch, lambda: real(step, net, opt, sched, pools, pipe_params,
-                                            idx[:, :n], snr[:n]), cpu=False)
+    cut = [(pools, pipe_params, idx[:, :n], snr[:n]) for pools, pipe_params, idx, snr in shards]
+    prof = profile_call(torch, lambda: real(step, net, opt, sched, cut, join), cpu=False)
     k23 = {name: getattr(k, attr) - before[name] for name, (k, attr) in kernels.items()
            if name in ("rd_scan", "pitch_window_gather")}
     print(f"[14c] {n} more step(s) under torch.profiler: {prof['launches'] / n:.0f} launches a step, "
           f"device {prof['device_ms'] / n:.3f} ms of {prof['wall_ms'] / n:.3f} ms a step (busy "
           f"{100 * prof['busy_share']:.1f}%); K2, K3 launches {k23}; top {prof['top']} [{card}]")
-    return model, launches
+    return model, launches, losses
 
 
 def train_host_run(torch, training, card: str) -> None:
@@ -3383,7 +3403,7 @@ def training_phase(torch, dev, card: str, kernels: dict, probe0: tuple) -> dict:
     batch = train_batch_check(torch, training, pipeline, rk, ok, dev)
     train_step_check(torch, ptrain, dev, batch)
     t.append(time.perf_counter())
-    model, launches = train_corpus_run(torch, training, dev, card, kernels, probe0)
+    model, launches, losses = train_corpus_run(torch, training, dev, card, kernels, probe0)
     t.append(time.perf_counter())
     train_host_run(torch, training, card)
     t.append(time.perf_counter())
@@ -3432,7 +3452,7 @@ def training_phase(torch, dev, card: str, kernels: dict, probe0: tuple) -> dict:
     t.append(time.perf_counter())
     print(f"[14] 14a-b, 14c, 14d, 14e, 14f took "
           f"{', '.join(f'{b - a:.1f}' for a, b in zip(t, t[1:]))} s")
-    return launches
+    return launches, model, losses
 
 
 def cli_lines(data: Path) -> None:
@@ -4248,6 +4268,253 @@ def mesh_app(torch, card: str, ggml: Path, wav: Path) -> None:
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: training over a mesh, and several processes on the one card
+# ---------------------------------------------------------------------------
+
+MP_STEPS = 5  # 17a, 17c: DP training steps at TRAIN_B x TRAIN_F
+MP_LOSS_RTOL = 1e-5  # 17a, 17c: losses sharded vs unsharded, relative
+MP_PARAM_RTOL = 1e-5  # 17a, 17c: parameters after the steps, x each tensor's largest |value|
+MP_MODEL_RTOL = 1e-4  # 17b: loss curves sharded vs unsharded, relative
+MP_PROCS = 2  # 17c: processes sharing the card
+MP_ASR_B, MP_ASR_NEW = 8, 8  # 17c: whisper-base chunks (30 s mel) and new tokens
+MP_TIMEOUT = 300  # 17c: seconds for the ranks (each collective gives up after it too)
+
+
+def mp_params(ptrain) -> dict:
+    """17a, 17c: train_model's init draw (0.08 N(0, 1)), biases included."""
+    rng = np.random.default_rng(SEED + 17)
+    return {k: (rng.standard_normal(v.shape) * 0.08).astype(np.float32)
+            for k, v in ptrain.init_train_params().items()}
+
+
+def mp_batch(ptrain, step: int) -> dict:
+    """17a, 17c: the global batch of a step, silence frames masked."""
+    batch = ptrain.synthetic_batch(TRAIN_B, TRAIN_F, seed=SEED + 100 + step)
+    rng = np.random.default_rng(SEED + 200 + step)
+    batch["mask"] = (rng.uniform(0, 1, (TRAIN_B, TRAIN_F)) > 0.3).astype(np.float32)
+    return batch
+
+
+def mp_audio(rows: range) -> np.ndarray:
+    """17c: ``rows`` of the global denoise batch (S_MAIN streams x one
+    block): stream s is 1 s of speech-like audio from its own seed, repeated
+    over the block, so a rank makes only its own rows."""
+    n = F_MAIN * 480
+    one = [speechlike(min(n, 48000), np.random.default_rng(SEED + 300 + s), 80.0 + 2.0 * s)
+           for s in rows]
+    return np.stack([np.resize(x, n) for x in one])
+
+
+def mp_mel(n_mels: int) -> np.ndarray:
+    """17c: the global whisper batch, MP_ASR_B 30 s log-mel chunks."""
+    rng = np.random.default_rng(SEED + 400)
+    return (rng.standard_normal((MP_ASR_B, n_mels, 3000)) * 0.5).astype(np.float32)
+
+
+def mp_train(torch, ptrain, dev=None, mesh=None):
+    """MP_STEPS steps of make_train_step (on dev, or over mesh) from
+    mp_params: (losses, parameters, replicas bit-equal, host wall)."""
+    step, to_params, to_batch, optimizer = ptrain.make_train_step(dev, mesh=mesh)
+    net = to_params(mp_params(ptrain))
+    opt = optimizer(net)
+    batches = [mp_batch(ptrain, s) for s in range(MP_STEPS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for b in batches:
+        net, opt, loss = step(net, opt, to_batch(b))
+        losses.append(loss)
+    losses = [float(v) for v in losses]
+    wall = time.perf_counter() - t0
+    params = net.params_to_numpy()
+    equal = all(np.array_equal(rep.params_to_numpy()[k], params[k])
+                for rep in getattr(net, "replicas", [net]) for k in params)
+    return np.array(losses), params, equal, wall
+
+
+def mp_check(tag: str, want, got) -> str:
+    """17a, 17c: losses and parameters against the unsharded run's."""
+    wl, wp = want[0], want[1]
+    gl, gp = got[0], got[1]
+    lrel = float(np.max(np.abs(gl - wl) / np.abs(wl)))
+    prel = {k: float(np.abs(gp[k] - wp[k]).max() / np.abs(wp[k]).max()) for k in wp}
+    worst = max(prel, key=prel.get)
+    if not lrel <= MP_LOSS_RTOL:
+        fail(f"{tag} losses {gl} against unsharded {wl}")
+    if not prel[worst] <= MP_PARAM_RTOL:
+        fail(f"{tag} parameter {worst} {prel[worst]:.3e} of its largest from unsharded")
+    return (f"losses {lrel:.3e} relative (tol {MP_LOSS_RTOL}), parameters worst {worst} "
+            f"{prel[worst]:.3e} of its largest (tol {MP_PARAM_RTOL})")
+
+
+def rank_17c(outdir: Path, ggml: Path) -> int:
+    """One rank of [17c] (``chip_smoke.py --rank17c OUTDIR GGML``), started
+    by ``multihost.launch_local``: its rows of the global denoise and
+    whisper batches over ``mesh.local``, MP_STEPS DP training steps over the
+    process mesh; writes rank<i>.npz with the launches of K1-K3."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from crispy_tpu_torch import _build
+    from crispy_tpu_torch.dsp.rnnoise import ops_kernels as ok
+    from crispy_tpu_torch.dsp.rnnoise import pipeline
+    from crispy_tpu_torch.dsp.rnnoise import rnn_kernels as rk
+    from crispy_tpu_torch.dsp.rnnoise.weights import builtin_model
+    from crispy_tpu_torch.models.whisper import WhisperModel
+    from crispy_tpu_torch.models.whisper.model import greedy_decode
+    from crispy_tpu_torch.parallel import multihost as mh
+    from crispy_tpu_torch.parallel import train as ptrain
+
+    t0 = time.perf_counter()
+    backend = mh.initialize_from_env(local_device_count=1, timeout=MP_TIMEOUT)
+    mesh = mh.global_data_mesh()
+    pid, n = mesh.process_index, mesh.process_count
+    _build.load()  # built by the parent
+    walls = {"start": time.perf_counter() - t0}
+    counters = ((rk.nn_scan, "launches"), (rk.rd_scan, "launches"),
+                (ok.pitch_window_gather, "launches"))
+    for k, attr in counters:
+        setattr(k, attr, 0)
+
+    b = S_MAIN // n
+    mine = mp_audio(range(pid * b, (pid + 1) * b))
+    params = pipeline.make_params(builtin_model(), mesh.local.first)
+    t = time.perf_counter()
+    rows = pipeline.denoise_batch(mine, params=params, block_frames=F_MAIN, mesh=mesh.local)
+    walls["denoise"] = time.perf_counter() - t
+
+    wm = WhisperModel.from_ggml(ggml, device=mesh.local.first).shard_to(mesh.local)
+    a = MP_ASR_B // n
+    mel = mh.feed_process_local(mesh, mp_mel(wm.cfg.n_mels)[pid * a:(pid + 1) * a])
+    prompt = mh.feed_process_local(mesh, np.full((a, 1), wm.cfg.sot, np.int64))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    toks = mh.gather_local([greedy_decode(rep, m, p, max_new=MP_ASR_NEW, eot=wm.cfg.eot)[0]
+                            for rep, m, p in zip(wm.replicas, mel.parts, prompt.parts)])
+    walls["whisper"] = time.perf_counter() - t
+    launches = [getattr(k, attr) for k, attr in counters]
+
+    losses, got, equal, walls["train"] = mp_train(torch, ptrain, mesh=mesh)
+    if not equal:
+        raise RuntimeError("the replicas differ")
+    np.savez(outdir / f"rank{pid}.npz", rows=rows, tokens=toks, losses=losses,
+             launches=np.array(launches), backend=np.array(backend),
+             devices=np.array(mesh.devices.size), walls=np.array(json.dumps(walls)),
+             **{f"param:{k}": v for k, v in got.items()})
+    torch.distributed.destroy_process_group()
+    print(f"[rank {pid}] 17c done: backend {backend}", flush=True)
+    return 0
+
+
+def multiprocess_phase(torch, pipeline, params, dev, card: str, kernels: dict, ggml: Path,
+                       unsharded: tuple) -> dict:
+    """[17a] make_train_step over meshes of the card, [17b] [14c]'s
+    train_model call over dp=2 against [14c]'s (``unsharded``: its model and
+    loss curve), [17c] two processes sharing the card (their ranks run while
+    17a and 17b run here). Returns the launches of the phase's paths."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from crispy_tpu_torch.dsp.rnnoise import training
+    from crispy_tpu_torch.models.whisper import WhisperModel
+    from crispy_tpu_torch.models.whisper.model import greedy_decode
+    from crispy_tpu_torch.parallel import multihost as mh
+    from crispy_tpu_torch.parallel import train as ptrain
+
+    tmp = Path(tempfile.mkdtemp())
+    argv = [sys.executable, str(ROOT / "chip_smoke.py"), "--rank17c", str(tmp), str(ggml)]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        ranks = pool.submit(mh.launch_local, argv, MP_PROCS, f"file://{tmp}/rendezvous",
+                            MP_TIMEOUT, tmp / "logs")
+        # [17a] make_train_step over (2, 1) and (2, 2), against the unsharded step
+        want = mp_train(torch, ptrain, dev=dev)
+        for shape in ((2, 1), (2, 2)):
+            got = mp_train(torch, ptrain, mesh=card_mesh(shape[0] * shape[1], shape[1]))
+            if not got[2]:
+                fail(f"[17a] {shape}: the replicas differ")
+            print(f"[17a] make_train_step over {shape} ({MESH_NOTE}), {MP_STEPS} steps at "
+                  f"B={TRAIN_B} F={TRAIN_F} against the unsharded step: "
+                  f"{mp_check(f'[17a] {shape}', want, got)}; replicas bit-equal; host wall "
+                  f"{got[3]:.3f} s (unsharded {want[3]:.3f} s) [{card}]")
+        t1 = time.perf_counter()
+        # [17b] [14c]'s train_model call over dp=2, against [14c]'s run of it
+        model0, l0 = unsharded
+        for k, attr in kernels.values():
+            setattr(k, attr, 0)
+        t = time.perf_counter()
+        model1, l1 = training.train_model(
+            steps=TRAIN_STEPS, batch_streams=TRAIN_B, frames=TRAIN_F, corpus_streams=TRAIN_CORPUS,
+            steps_per_call=TRAIN_SPC, log_every=TRAIN_SPC, mesh=card_mesh(2, 1))
+        w1 = time.perf_counter() - t
+        launches = {name: getattr(k, attr) for name, (k, attr) in kernels.items()}
+        rel = float(np.max(np.abs(np.array(l1) - np.array(l0)) / np.abs(l0)))
+        codes = sum(int(np.sum(getattr(getattr(model0, g), f) != getattr(getattr(model1, g), f)))
+                    for g in ("input_dense", "denoise_output", "vad_output", "vad_gru",
+                              "noise_gru", "denoise_gru")
+                    for f in ("w", "b") + (("u",) if g.endswith("gru") else ()))
+        print(f"[17b] [14c]'s train_model call over dp=2 ({MESH_NOTE}), {TRAIN_STEPS} steps of "
+              f"{TRAIN_SPC} a call, B={TRAIN_B} F={TRAIN_F}, {TRAIN_CORPUS} corpus streams: "
+              f"losses {[round(v, 6) for v in l1]} against [14c]'s {[round(v, 6) for v in l0]} "
+              f"({rel:.3e} relative, tol {MP_MODEL_RTOL}); int8 codes differing {codes}; K2, K3 "
+              f"launches {launches['rd_scan']}, {launches['pitch_window_gather']} ({TRAIN_STEPS} "
+              f"steps x 2 shards); host wall {w1:.2f} s (corpus build included) [{card}]")
+        if not (len(l1) == len(l0) and rel <= MP_MODEL_RTOL):
+            fail("[17b] the loss curve over the mesh differs from the unsharded one")
+        for name in ("rd_scan", "pitch_window_gather"):
+            if launches[name] != 2 * TRAIN_STEPS:
+                fail(f"[17b] {name}: {launches[name]} launches for {TRAIN_STEPS} steps x 2")
+        t2 = time.perf_counter()
+        logs = ranks.result()
+    t3 = time.perf_counter()
+    # [17c] the ranks against this process's runs of the whole batches
+    got = [dict(np.load(tmp / f"rank{r}.npz")) for r in range(MP_PROCS)]
+    audio = mp_audio(range(S_MAIN))
+    t = time.perf_counter()
+    whole = pipeline.denoise_batch(audio, params=params, block_frames=F_MAIN, device=dev)
+    w_den = time.perf_counter() - t
+    wm = WhisperModel.from_ggml(ggml, device=dev)
+    mel = torch.from_numpy(mp_mel(wm.cfg.n_mels)).to(dev)
+    prompt = torch.full((MP_ASR_B, 1), wm.cfg.sot, dtype=torch.long, device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    toks = greedy_decode(wm.model, mel, prompt, max_new=MP_ASR_NEW, eot=wm.cfg.eot)[0].cpu().numpy()
+    w_asr = time.perf_counter() - t
+    b, a = S_MAIN // MP_PROCS, MP_ASR_B // MP_PROCS
+    names = ("nn_scan", "rd_scan", "pitch_window_gather")
+    for r, g in enumerate(got):
+        if str(g["backend"]) != "gloo" or int(g["devices"]) != MP_PROCS:
+            fail(f"[17c] rank {r}: backend {g['backend']}, {g['devices']} devices in the job")
+        err = float(np.abs(g["rows"] - whole[r * b:(r + 1) * b]).max())
+        same = bool(np.array_equal(g["tokens"], toks[r * a:(r + 1) * a]))
+        check = mp_check(f"[17c] rank {r}", want, (g["losses"], {k[6:]: v for k, v in g.items()
+                                                               if k.startswith("param:")}))
+        walls = json.loads(str(g["walls"]))
+        print(f"[17c] rank {r} of {MP_PROCS} sharing the card, backend {g['backend']}: denoise "
+              f"rows {r * b}-{(r + 1) * b - 1} of S={S_MAIN} F={F_MAIN} max|diff| {err:.3e} from "
+              f"the one-process denoise_batch (tol {F32_TOL}); whisper-base rows {r * a}-"
+              f"{(r + 1) * a - 1} of B={MP_ASR_B}, {MP_ASR_NEW} tokens equal {same}; "
+              f"{MP_STEPS} DP steps against [17a]'s unsharded run: {check}; K1-K3 launches "
+              f"{dict(zip(names, g['launches'].tolist()))}; host walls {walls} s (one process: "
+              f"denoise {w_den:.3f}, whisper {w_asr:.3f}, training {want[3]:.3f} s; the ranks ran "
+              f"beside 17a-17b, not a speed-up) [{card}]")
+        if not err <= F32_TOL:
+            fail(f"[17c] rank {r}: denoise rows differ by {err}")
+        if not same:
+            fail(f"[17c] rank {r}: tokens differ")
+        if not all(np.array_equal(g[k], got[0][k]) for k in g if k.startswith("param:")):
+            fail(f"[17c] rank {r}: parameters differ from rank 0's")
+        if g["launches"].tolist() != [1, 1, 1]:
+            fail(f"[17c] rank {r}: K1-K3 launched {g['launches']} times for one block")
+        for name, c in zip(names, g["launches"].tolist()):
+            launches[name] += c
+    print(f"[17c] ranks' last lines: {[log.strip().splitlines()[-1] for log in logs]}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[17] 17a, 17b took {t1 - t0:.1f}, {t2 - t1:.1f} s; the ranks' wait after them "
+          f"{t3 - t2:.1f} s, 17c's checks {time.perf_counter() - t3:.1f} s")
+    return launches
+
+
 def main() -> int:
     # The run uses one card: show torch only the first visible one, so the
     # count it reports is the count it used.
@@ -4502,7 +4769,7 @@ def main() -> int:
 
     # --- 14: RNNoise training ----------------------------------------------
     t0 = time.perf_counter()
-    train_launches = training_phase(torch, dev, card, kernels, probe0)
+    train_launches, corpus_model, corpus_losses = training_phase(torch, dev, card, kernels, probe0)
     for name, c in train_launches.items():
         launches[name] += c
     print(f"[14] phase 14 took {time.perf_counter() - t0:.1f} s")
@@ -4536,10 +4803,18 @@ def main() -> int:
     mesh_diarization(torch, card, diar)
     t4 = time.perf_counter()
     mesh_app(torch, card, ggml, e2e_wav)
-    whisper_files.close()
     print(f"[16] 16a, 16b, 16c, 16d, 16e took {t1 - t0:.1f}, {t2 - t1:.1f}, {t3 - t2:.1f}, "
           f"{t4 - t3:.1f}, {time.perf_counter() - t4:.1f} s; phase 16 took "
           f"{time.perf_counter() - t0:.1f} s")
+
+    # --- 17: training over a mesh, several processes on the card --------------
+    t0 = time.perf_counter()
+    mp_launches = multiprocess_phase(torch, pipeline, params, dev, card, kernels, ggml,
+                                     (corpus_model, corpus_losses))
+    for name, c in mp_launches.items():
+        launches[name] += c
+    whisper_files.close()
+    print(f"[17] phase 17 took {time.perf_counter() - t0:.1f} s")
 
     for r in rows:
         r["launches"] = launches[r["name"]]
@@ -4552,4 +4827,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank17c"]:
+        sys.exit(rank_17c(Path(sys.argv[2]), Path(sys.argv[3])))
     sys.exit(main())

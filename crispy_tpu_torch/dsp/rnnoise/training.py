@@ -202,8 +202,13 @@ def make_batch(params, rng: np.random.Generator, S: int, F: int) -> Dict[str, to
     """features [S,F,42], gains [S,F,22], vad [S,F], mask [S,F] on the
     device of ``params``: clean and noisy audio go up in one copy, and
     nothing comes back."""
+    return _device_batch(params, *synth_batch(rng, S, F))
+
+
+def _device_batch(params, clean: np.ndarray, noisy: np.ndarray,
+                  voiced: np.ndarray) -> Dict[str, torch.Tensor]:
+    """``make_batch`` of host audio already drawn."""
     dev = params["half_window"].device
-    clean, noisy, voiced = synth_batch(rng, S, F)
     audio = torch.from_numpy(np.stack([clean, noisy])).to(dev)
     feats, gains, mask = _batch_targets(params, audio[0], audio[1])
     return {
@@ -299,16 +304,20 @@ def _remix(pools, idx_c, idx_n, snr_db):
     return clean, torch.clamp(clean + noise, -1.0, 1.0), vp.index_select(0, idx_c)
 
 
-def _corpus_call(step, net, opt, sched, pools, pipe_params, idx, snr) -> torch.Tensor:
-    """``len(snr)`` steps of ``step`` from the pools: idx [2, n, B] (clean
-    rows, noise rows), snr [n, B, 1] dB, both on the device. Returns the n
-    losses, on the device."""
-    ls = torch.zeros(snr.shape[0], dtype=torch.float32, device=snr.device)
-    for i in range(snr.shape[0]):
-        clean, noisy, vad = _remix(pools, idx[0, i], idx[1, i], snr[i])
-        feats, gains, mask = _batch_targets(pipe_params, clean, noisy)
-        batch = {"features": feats, "gains": gains, "mask": mask, "vad": vad}
-        net, opt, ls[i] = step(net, opt, batch)
+def _corpus_call(step, net, opt, sched, shards, join) -> torch.Tensor:
+    """``n`` steps of ``step`` from the pools. ``shards`` holds one
+    (pools, pipeline params, idx [2, n, b] clean and noise rows, snr [n, b, 1]
+    dB) per data row, on the row's device; ``join`` makes the step's batch
+    of the rows' dicts. Returns the n losses, on the first row's device."""
+    n = shards[0][3].shape[0]
+    ls = torch.zeros(n, dtype=torch.float32, device=shards[0][3].device)
+    for i in range(n):
+        parts = []
+        for pools, pipe_params, idx, snr in shards:
+            clean, noisy, vad = _remix(pools, idx[0, i], idx[1, i], snr[i])
+            feats, gains, mask = _batch_targets(pipe_params, clean, noisy)
+            parts.append({"features": feats, "gains": gains, "mask": mask, "vad": vad})
+        net, opt, ls[i] = step(net, opt, join(parts))
         sched.step()
     return ls
 
@@ -333,19 +342,36 @@ def train_model(
     fresh clean x noise x SNR recombination there; the draws of a call of
     `steps_per_call` steps go up in one copy, and the call's losses come
     back in one read when it is logged. The default (None) generates each
-    step's batch on the host. `mesh` must be None: DP training over a mesh
-    and over several processes is ROADMAP item 12c-ii.
+    step's batch on the host.
+
+    `mesh` (a ``parallel.Mesh`` or a ``multihost.ProcessMesh``; ``device``
+    then None or its first device) trains data-parallel, and
+    tensor-parallel over each data row's model devices
+    (``parallel.train.make_train_step``): `batch_streams` must split evenly
+    over the job's data rows. Every process makes the unsharded run's
+    random draws, in its order, and keeps its own rows: in host mode each
+    process synthesizes the whole batch on the host (the synthesis repeats
+    in every process) and the targets run on its rows only, each data row's
+    on its device; in corpus mode the pools go once to each distinct device
+    and each row gathers its own mixtures. The loss curve and the model are
+    the unsharded run's, to f32 rounding.
     """
     from torch.optim.lr_scheduler import LambdaLR
 
+    from ...parallel import check_device
     from ...parallel import train as ptrain
+    from ...parallel.multihost import as_process_mesh
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "training over a mesh is not ported yet: DP training over a mesh and over "
-            "several processes is ROADMAP item 12c-ii; train on one device")
-    dev = resolve_device(device)
-    pipe_params = pipeline.make_params(None, dev)  # DSP tables only (weights unused here)
+    if mesh is None:
+        dev = resolve_device(device)
+        rows = [(slice(None), dev)]
+    else:
+        local = as_process_mesh(mesh).local
+        check_device(local, device)
+        dev = resolve_device(local.first)
+        rows = ptrain.data_rows(mesh, batch_streams)
+    # DSP tables only (weights unused here), one copy a device
+    pipes = {d: pipeline.make_params(None, d) for d in dict.fromkeys(d for _, d in rows)}
     rng = np.random.default_rng(seed)
 
     if corpus_streams is not None:
@@ -367,25 +393,31 @@ def train_model(
     # settles the quantization-sensitive gains layer instead of bouncing at
     # 1e-3. The optimizer's lr is 1, so each step's lr is the schedule's
     # value; like optax, step k uses the schedule at count k - 1 (0.1 lr first).
-    step, to_device_params, _, optimizer = ptrain.make_train_step(dev, 1.0)
+    step, to_device_params, _, optimizer = ptrain.make_train_step(dev, 1.0, mesh=mesh)
     net = to_device_params(tparams)
     opt = optimizer(net)
     warmup = max(steps // 50, 1)
     sched = LambdaLR(opt, lambda k: warmup_cosine_decay(
         k, learning_rate * 0.1, learning_rate, warmup, steps, learning_rate * 0.05))
 
+    def join(parts):
+        return parts[0] if mesh is None else parts
+
     losses = []
     if corpus_streams is not None:
         corpus = build_corpus(seed + 7919, corpus_streams, frames)
-        pools = tuple(torch.from_numpy(corpus[k]).to(dev) for k in ("clean", "noise", "voiced"))
+        pools = {d: tuple(torch.from_numpy(corpus[k]).to(d) for k in ("clean", "noise", "voiced"))
+                 for d in pipes}
         P = corpus_streams
         for call0 in range(0, steps, steps_per_call):
             idx_c = rng.integers(0, P, (steps_per_call, batch_streams))
             idx_n = rng.integers(0, P, (steps_per_call, batch_streams))
             snr = rng.uniform(-5, 25, (steps_per_call, batch_streams, 1)).astype(np.float32)
-            ls = _corpus_call(step, net, opt, sched, pools, pipe_params,
-                              torch.from_numpy(np.stack([idx_c, idx_n])).to(dev),
-                              torch.from_numpy(snr).to(dev))
+            shards = [(pools[d], pipes[d],
+                       torch.from_numpy(np.stack([idx_c[:, s], idx_n[:, s]])).to(d),
+                       torch.from_numpy(np.ascontiguousarray(snr[:, s])).to(d))
+                      for s, d in rows]
+            ls = _corpus_call(step, net, opt, sched, shards, join)
             if (call0 // steps_per_call) % max(log_every // steps_per_call, 1) == 0 \
                     or call0 + steps_per_call >= steps:
                 losses.append(float(ls.mean()))  # one read per logged call
@@ -393,7 +425,8 @@ def train_model(
         return model, losses
 
     for i in range(steps):
-        batch = make_batch(pipe_params, rng, batch_streams, frames)
+        clean, noisy, voiced = synth_batch(rng, batch_streams, frames)
+        batch = join([_device_batch(pipes[d], clean[s], noisy[s], voiced[s]) for s, d in rows])
         net, opt, loss = step(net, opt, batch)
         sched.step()
         if i % log_every == 0 or i == steps - 1:

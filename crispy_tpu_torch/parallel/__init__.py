@@ -11,8 +11,10 @@ pieces on ``devices[i, :]``, and the results come back gathered in stream
 order. A device may repeat (``["cuda:0"] * 2`` on one card runs the split
 code); repeated entries share one copy of every replicated tensor.
 
-``parallel/train.py`` holds the training net and step; training over a mesh
-and several processes are the next multi-GPU slice (ROADMAP item 12c-ii).
+``parallel/train.py`` holds the training net and its step, DP x TP over a
+mesh; ``parallel/multihost.py`` adds several processes over
+``torch.distributed`` (a ``ProcessMesh``: this process's devices as a
+``Mesh`` and its place in the job).
 """
 
 from __future__ import annotations

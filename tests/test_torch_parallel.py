@@ -334,13 +334,41 @@ def test_native_diarization_nets_split_over_the_mesh():
     np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max(), rtol=0)
 
 
+JAX_SIDE = ("jax", "jaxlib", "crispy_tpu", "flax", "optax")
+
+
+def rank_entry_imports(path: Path):
+    """The modules imported by a test file's rank entry: everything in the
+    file but its ``test_`` and ``jax_`` functions, which only the parent
+    test process runs."""
+    import ast
+
+    for node in ast.parse(path.read_text(), filename=str(path)).body:
+        if isinstance(node, ast.FunctionDef) and node.name.startswith(("test_", "jax_")):
+            continue
+        for sub in ast.walk(node):
+            if isinstance(sub, ast.Import):
+                yield from (a.name for a in sub.names)
+            elif isinstance(sub, ast.ImportFrom) and sub.level == 0 and sub.module:
+                yield sub.module
+
+
 def test_parallel_modules_import_neither_jax_nor_the_jax_package():
     from test_torch_denoiser import _imported_modules
 
     files = sorted((ROOT / "crispy_tpu_torch" / "parallel").glob("*.py"))
-    assert {f.name for f in files} >= {"__init__.py", "asr.py", "train.py"}
+    assert {f.name for f in files} >= {"__init__.py", "asr.py", "multihost.py", "train.py"}
     bad = [(f.name, m) for f in files for m in _imported_modules(f)
-           if m.split(".")[0] in ("jax", "jaxlib", "crispy_tpu", "flax", "optax")]
+           if m.split(".")[0] in JAX_SIDE]
+    assert not bad, bad
+    # the rank entry of the multi-process drill, and the modules it imports from tests/
+    drill = Path(__file__).with_name("test_torch_multihost.py")
+    mods = set(rank_entry_imports(drill))
+    assert {"crispy_tpu_torch.parallel", "torch_audio"} <= mods
+    assert not [m for m in mods if m.split(".")[0] in JAX_SIDE], mods
+    local = [Path(__file__).with_name(m + ".py") for m in mods if "." not in m]
+    bad = [(f.name, m) for f in local if f.exists() for m in _imported_modules(f)
+           if m.split(".")[0] in JAX_SIDE]
     assert not bad, bad
 
 

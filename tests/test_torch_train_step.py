@@ -18,6 +18,7 @@ import optax  # noqa: E402
 from crispy_tpu import parallel as jparallel  # noqa: E402
 from crispy_tpu.parallel import train as jtrain  # noqa: E402
 from crispy_tpu_torch.dsp.rnnoise import training as tt  # noqa: E402
+from crispy_tpu_torch import parallel as pparallel  # noqa: E402
 from crispy_tpu_torch.parallel import train as pt  # noqa: E402
 from torch_audio import one_torch_thread  # noqa: E402,F401
 
@@ -186,6 +187,141 @@ def test_train_step_matches_jax():
         noise += int((~live).sum())
         assert np.abs(after[k] - np.asarray(jp_[k]))[live].max() <= ADAM_TOL, k
     print(f"weights with a gradient below {GRAD_RTOL} of their tensor's largest: {noise}")
+
+
+# ---------------------------------------------------------------------------
+# The step over a mesh (DP x TP) against the JAX step over a mesh
+# ---------------------------------------------------------------------------
+
+def jax_mesh_run(mesh, params, batches):
+    """The JAX step over ``mesh`` (``make_train_step``'s shardings and Adam;
+    train_model's masked loss for a batch with a mask) from ``params`` over
+    ``batches``: {"losses", "params", "grads" (one dict a step)}."""
+    _, shard_params, shard_batch, opt = jtrain.make_train_step(mesh)
+
+    def make(loss):
+        def one(p, state, batch):
+            value, grads = jax.value_and_grad(loss)(p, batch)
+            updates, state = opt.update(grads, state, p)
+            return optax.apply_updates(p, updates), state, value, grads
+        return jax.jit(one)
+
+    steps = {True: make(jax_masked_loss), False: make(jtrain.loss_fn)}
+    p = shard_params(jax_params(params))
+    state = opt.init(p)
+    losses, grads = [], []
+    for b in batches:
+        p, state, loss, g = steps["mask" in b](p, state, shard_batch(b))
+        losses.append(float(loss))
+        grads.append({k: np.asarray(v) for k, v in g.items()})
+    return {"losses": np.array(losses), "params": {k: np.asarray(v) for k, v in p.items()},
+            "grads": grads}
+
+
+def check_against_jax(after, run, tol):
+    """The port's parameters after the run's steps within ``tol`` of the
+    JAX step's, on the weights whose JAX gradient is above rounding noise
+    (GRAD_RTOL of the tensor's largest) at every step: Adam moves a weight
+    by ~lr sign(g), so a gradient that is noise in both moves it either way
+    (``test_train_step_matches_jax``). Returns how many weights were left out."""
+    noise = 0
+    for k, want in run["params"].items():
+        live = np.ones(want.shape, bool)
+        for g in run["grads"]:
+            live &= np.abs(g[k]) > GRAD_RTOL * np.abs(g[k]).max()
+        noise += int((~live).sum())
+        assert after[k].shape == want.shape, k
+        assert np.abs(after[k] - want)[live].max() <= tol, k
+    return noise
+
+
+def cpu_mesh(n, model_parallel):
+    return jparallel.make_mesh(n, model_parallel=model_parallel), \
+        pparallel.make_mesh(devices=["cpu"] * n, model_parallel=model_parallel)
+
+
+MESHES = [(1, 1), (2, 1), (4, 1), (4, 2), (8, 2)]  # (devices, model_parallel)
+MESH_STEPS = 2
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+@pytest.mark.parametrize("n,mp", MESHES, ids=[f"{n // mp}x{mp}" for n, mp in MESHES])
+def test_mesh_train_step_matches_jax(n, mp, masked):
+    """make_train_step(mesh=...) at dp = 1, 2, 4 and (2, 2), (4, 2) against
+    the JAX step over make_mesh(n): losses within LOSS_RTOL, parameters on
+    the weights above gradient noise within ADAM_TOL, the replicas bit-equal,
+    and the tensor-parallel pieces each on their row's device."""
+    p = random_params(12)
+    batches = []
+    for s in range(MESH_STEPS):
+        b = pt.synthetic_batch(4, 6, seed=13 + s)
+        if masked:
+            b["mask"] = (np.random.default_rng(s).uniform(0, 1, (4, 6)) > 0.3).astype(np.float32)
+        batches.append(b)
+    jmesh, mesh = cpu_mesh(n, mp)
+    assert mesh.devices.shape == jmesh.devices.shape
+    run = jax_mesh_run(jmesh, p, batches)
+    step, to_params, to_batch, optimizer = pt.make_train_step(mesh=mesh)
+    net = to_params(p)
+    opt = optimizer(net)
+    assert len(net.replicas) == mesh.dp
+    losses = []
+    for b in batches:
+        net, opt, loss = step(net, opt, to_batch(b))
+        losses.append(float(loss))
+    assert np.all(np.abs(np.array(losses) - run["losses"]) <= LOSS_RTOL * np.abs(run["losses"]))
+    after = net.params_to_numpy()
+    noise = check_against_jax(after, run, ADAM_TOL)
+    for rep in net.replicas[1:]:
+        other = rep.params_to_numpy()
+        assert all(np.array_equal(other[k], after[k]) for k in after)
+    print(f"{mesh.devices.shape} masked={masked}: losses {losses} vs {run['losses']}; "
+          f"{noise} weights below gradient noise left out")
+
+
+@pytest.mark.parametrize("n,mp", [(4, 2), (8, 2), (2, 1)])
+def test_tp_split_matches_jax_spec(n, mp):
+    """param_spec and the net's pieces, key by key, against the sharding
+    the JAX step gives each tensor (shard_params(...)[k].sharding.spec)."""
+    p = random_params(14)
+    jmesh, mesh = cpu_mesh(n, mp)
+    _, shard_params, _, _ = jtrain.make_train_step(jmesh)
+    jsharded = shard_params(jax_params(p))
+    net = pt.make_train_step(mesh=mesh)[1](p)
+    split = []
+    for k in pt.PARAM_KEYS:
+        spec = tuple(jsharded[k].sharding.spec)
+        assert pt.param_spec(k, p[k].shape, mp) == spec, k
+        lname, f = k.split(".")
+        for i, rep in enumerate(net.replicas):
+            t = getattr(getattr(rep, lname), f)
+            pieces = list(t) if isinstance(t, torch.nn.ParameterList) else [t]
+            assert len(pieces) == (mp if spec else 1), k
+            assert [q.device for q in pieces] == list(mesh.grid[i][:len(pieces)]), k
+            assert np.array_equal(np.concatenate([q.detach().numpy() for q in pieces], -1), p[k])
+        split += [k] if spec else []
+    # every tensor whose last axis divides splits; vad_output (width 1) stays whole
+    assert split == ([k for k in pt.PARAM_KEYS if not k.startswith("vad_output")] if mp > 1 else [])
+
+
+def test_mesh_pieces_own_their_storage():
+    """On repeated entries of one device every replica and piece is a
+    tensor of its own, so the run goes through the code several devices
+    would."""
+    net = pt.make_train_step(mesh=pparallel.make_mesh(devices=["cpu"] * 4))[1](random_params(15))
+    ptrs = [q.data_ptr() for q in net.parameters()]
+    assert len(ptrs) == len(set(ptrs))
+    assert len(list(net.replicas[0].vad_gru.u)) == 2
+
+
+def test_mesh_batch_must_split_evenly():
+    mesh = pparallel.make_mesh(devices=["cpu"] * 4)  # (2, 2): two data rows
+    step, _, to_batch, _ = pt.make_train_step(mesh=mesh)
+    with pytest.raises(ValueError, match="does not split evenly over 2 data rows"):
+        to_batch(pt.synthetic_batch(3, 4))
+    assert [s for s, _ in pt.data_rows(mesh, 4)] == [slice(0, 2), slice(2, 4)]
+    with pytest.raises(ValueError, match="conflicts with the mesh"):
+        pt.make_train_step(device="cuda:0", mesh=mesh)
 
 
 def test_entry_points_need_a_card():

@@ -223,11 +223,48 @@ def test_snr_improvement_builtin_matches_jax(jparams, tparams):
     assert et <= 1.25 * ej
 
 
-def test_train_model_refuses_a_mesh():
+@pytest.mark.parametrize("n,mp", [(2, 1), (4, 2)], ids=["dp2", "2x2"])
+@pytest.mark.parametrize("kw", [
+    dict(steps=4, corpus_streams=4, steps_per_call=2, log_every=1),
+    dict(steps=3, log_every=1),
+], ids=["corpus", "host"])
+def test_train_model_over_a_mesh_matches_unsharded(monkeypatch, kw, n, mp):
+    """train_model(mesh=...) in both modes: the unsharded run's loss curve
+    within LOSS_RTOL and its int8 codes, a code allowed to differ only where
+    the unsharded float lies within TIE_LSB of a rounding boundary."""
     from crispy_tpu_torch.parallel import make_mesh
 
-    with pytest.raises(NotImplementedError, match="item 12c-ii"):
-        tt.train_model(steps=1, mesh=make_mesh(devices=["cpu"] * 2), device="cpu")
+    floats = []
+    real = tt.quantize_to_model
+
+    def capture(params, name="trained"):
+        floats.append({k: np.asarray(v) for k, v in params.items()})
+        return real(params, name)
+
+    monkeypatch.setattr(tt, "quantize_to_model", capture)
+    want_model, want = tt.train_model(batch_streams=4, frames=10, device="cpu", **kw)
+    mesh = make_mesh(devices=["cpu"] * n, model_parallel=mp)
+    got_model, got = tt.train_model(batch_streams=4, frames=10, mesh=mesh, **kw)
+    assert got_model.name == want_model.name and len(got) == len(want)
+    assert np.max(np.abs(np.array(got) - np.array(want)) / np.abs(want)) <= LOSS_RTOL
+    ties = 0
+    for k in pt.PARAM_KEYS:
+        x = floats[0][k].astype(np.float64) * 256.0
+        differ = np.round(x) != np.round(floats[1][k].astype(np.float64) * 256.0)
+        assert np.all(np.abs(np.abs(x - np.floor(x)) - 0.5)[differ] < TIE_LSB), k
+        ties += int(differ.sum())
+    print(f"{mesh.devices.shape} {kw}: losses {got} vs {want}; codes at a near-tie {ties}; "
+          f"floats {max(np.abs(floats[0][k] - floats[1][k]).max() for k in pt.PARAM_KEYS):.3e} apart")
+
+
+def test_train_model_mesh_refusals():
+    from crispy_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(devices=["cpu"] * 2, model_parallel=1)
+    with pytest.raises(ValueError, match="does not split evenly over 2 data rows"):
+        tt.train_model(steps=1, batch_streams=3, frames=10, mesh=mesh)
+    with pytest.raises(ValueError, match="conflicts with the mesh"):
+        tt.train_model(steps=1, batch_streams=2, frames=10, mesh=mesh, device="cuda:0")
 
 
 def test_entry_points_need_a_card():
