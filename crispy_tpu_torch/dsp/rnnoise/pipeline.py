@@ -43,6 +43,7 @@ import torch
 
 from ...device import resolve_device
 from ...parallel import check_device
+from ...utils.tracing import span
 from . import constants as C
 from .frontend_kernels import IM0, YPAD, fwd_spectrum_bands, inv_spectrum_ola, win_spectrum_bands
 from .frontend_kernels import pad_band_e, pad_dft_fwd, pad_dft_inv
@@ -689,6 +690,12 @@ def denoise_batch(
     power-of-two divide and the output quantization is bit-identical to
     io.wav.write_wav's. Not available with a mesh (the JAX package's sharded
     step keeps the f32 surface).
+
+    While a profiler session records, the call records the spans
+    (``utils.tracing``) ``denoise_batch`` around it and, for each block and
+    shard, ``denoise.slice``, ``denoise.upload``, ``denoise.step`` and
+    ``denoise.readback``; each flush is ``denoise.flush`` with
+    ``denoise.flush.wait`` and ``denoise.flush.concat``.
     """
     if mesh is not None:
         check_device(mesh, device)
@@ -714,63 +721,72 @@ def denoise_batch(
     if not 0 < block_frames <= _MAX_BLOCK_FRAMES:
         raise ValueError(f"block_frames must be in 1..{_MAX_BLOCK_FRAMES}")
     S, T = a.shape
-    if params is None:
-        params = make_params(model, dev)
-    n_frames = T // FRAME
-    out = np.array(a, copy=True)
-    vads = []
-    # shard i: streams [i*b, (i+1)*b) of the zero-padded batch on devs[i];
-    # one copy of the params per distinct device (.to is a no-op where
-    # they already lie, so repeated entries share them)
-    b = -(-S // len(devs))
-    if b * len(devs) != S:
-        a = np.pad(a, ((0, b * len(devs) - S), (0, 0)))
-    copies = {d: {k: v.to(d) for k, v in params.items()} for d in dict.fromkeys(devs)}
-    shards = [(slice(i * b, (i + 1) * b), d, copies[d], init_state(b, d))
-              for i, d in enumerate(devs)]
-    states = [sh[3] for sh in shards]
-    blk = block_frames * FRAME
-    # Results copy back without blocking the host, so the next blocks are
-    # queued while earlier ones compute; the host waits once per flush.
-    pending: list = []  # (sample offset, length, out blocks, vad blocks)
-    pending_bytes = 0
-    flush_bytes = 512 << 20  # bound the device- and pinned-host-resident output
-
-    def to_host(t: torch.Tensor) -> torch.Tensor:
-        if t.device.type != "cuda":
-            return t
-        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        h.copy_(t, non_blocking=True)
-        return h
-
-    def flush():
-        nonlocal pending_bytes
-        for d in dict.fromkeys(devs):
-            if d.type == "cuda":
-                torch.cuda.synchronize(d)
-        for off, td, outs, vs in pending:
-            out[:, off: off + td] = np.concatenate([o.numpy() for o in outs])[:S]
-            if return_vad:
-                vads.append(np.concatenate([v.numpy() for v in vs])[:S])
-        pending.clear()
+    with span("denoise_batch"):
+        if params is None:
+            params = make_params(model, dev)
+        n_frames = T // FRAME
+        out = np.array(a, copy=True)
+        vads = []
+        # shard i: streams [i*b, (i+1)*b) of the zero-padded batch on devs[i];
+        # one copy of the params per distinct device (.to is a no-op where
+        # they already lie, so repeated entries share them)
+        b = -(-S // len(devs))
+        if b * len(devs) != S:
+            a = np.pad(a, ((0, b * len(devs) - S), (0, 0)))
+        copies = {d: {k: v.to(d) for k, v in params.items()} for d in dict.fromkeys(devs)}
+        shards = [(slice(i * b, (i + 1) * b), d, copies[d], init_state(b, d))
+                  for i, d in enumerate(devs)]
+        states = [sh[3] for sh in shards]
+        blk = block_frames * FRAME
+        # Results copy back without blocking the host, so the next blocks are
+        # queued while earlier ones compute; the host waits once per flush.
+        pending: list = []  # (sample offset, length, out blocks, vad blocks)
         pending_bytes = 0
+        flush_bytes = 512 << 20  # bound the device- and pinned-host-resident output
 
-    done = 0
-    with torch.no_grad():
-        while done < n_frames * FRAME:
-            todo = min(blk, n_frames * FRAME - done)
-            outs, vs = [], []
-            for i, (rows, d, p, _) in enumerate(shards):
-                chunk = torch.from_numpy(np.ascontiguousarray(a[rows, done: done + todo])).to(d)
-                states[i], o, v = step(p, states[i], chunk)
-                outs.append(to_host(o))
-                vs.append(to_host(v) if return_vad else None)
-                pending_bytes += o.numel() * o.element_size()
-            pending.append((done, todo, outs, vs))
-            if pending_bytes >= flush_bytes:
-                flush()
-            done += todo
-        flush()
+        def to_host(t: torch.Tensor) -> torch.Tensor:
+            if t.device.type != "cuda":
+                return t
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            return h
+
+        def flush():
+            nonlocal pending_bytes
+            with span("denoise.flush"):
+                with span("denoise.flush.wait"):
+                    for d in dict.fromkeys(devs):
+                        if d.type == "cuda":
+                            torch.cuda.synchronize(d)
+                with span("denoise.flush.concat"):
+                    for off, td, outs, vs in pending:
+                        out[:, off: off + td] = np.concatenate([o.numpy() for o in outs])[:S]
+                        if return_vad:
+                            vads.append(np.concatenate([v.numpy() for v in vs])[:S])
+            pending.clear()
+            pending_bytes = 0
+
+        done = 0
+        with torch.no_grad():
+            while done < n_frames * FRAME:
+                todo = min(blk, n_frames * FRAME - done)
+                outs, vs = [], []
+                for i, (rows, d, p, _) in enumerate(shards):
+                    with span("denoise.slice"):
+                        piece = np.ascontiguousarray(a[rows, done: done + todo])
+                    with span("denoise.upload"):
+                        chunk = torch.from_numpy(piece).to(d)
+                    with span("denoise.step"):
+                        states[i], o, v = step(p, states[i], chunk)
+                    with span("denoise.readback"):
+                        outs.append(to_host(o))
+                        vs.append(to_host(v) if return_vad else None)
+                    pending_bytes += o.numel() * o.element_size()
+                pending.append((done, todo, outs, vs))
+                if pending_bytes >= flush_bytes:
+                    flush()
+                done += todo
+            flush()
     if return_vad:
         v = np.concatenate(vads, axis=1) if vads else np.zeros((S, 0), np.float32)
         return (out[0] if squeeze else out), (v[0] if squeeze else v)

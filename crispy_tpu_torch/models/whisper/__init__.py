@@ -15,6 +15,7 @@ import torch
 from ...device import resolve_device
 from ...dsp.mel import log_mel_spectrogram
 from ...parallel import check_device, gather, pad_rows
+from ...utils.tracing import span
 from .model import (
     CONFIGS, Whisper, WhisperConfig, beam_decode, decode_logits, encode, greedy_decode,
     sample_decode, shard_module,
@@ -121,10 +122,11 @@ class WhisperModel:
         return torch.atleast_2d(audio_16k).to(self.device, torch.float32)
 
     def _mel_prompt(self, audio_16k, prompt_ids: List[int]):
-        a = self._chunks(audio_16k)
-        mel = log_mel_spectrogram(a, n_mels=self.cfg.n_mels, pad_to_chunk=True)
-        prompt = torch.tensor(prompt_ids, dtype=torch.long, device=self.device)
-        return mel, prompt.expand(a.shape[0], -1).contiguous()
+        with span("whisper.mel"):
+            a = self._chunks(audio_16k)
+            mel = log_mel_spectrogram(a, n_mels=self.cfg.n_mels, pad_to_chunk=True)
+            prompt = torch.tensor(prompt_ids, dtype=torch.long, device=self.device)
+            return mel, prompt.expand(a.shape[0], -1).contiguous()
 
     def transcribe_chunks(
         self,
@@ -169,47 +171,54 @@ class WhisperModel:
         threshold while confidence stays low are emitted as silence. Each
         retry re-decodes the full batch and keeps rows that already passed.
         Rung t_i samples from a generator seeded seed + t_i on the device.
+        While a profiler session records, the call records the span
+        ``whisper.transcribe`` around ``whisper.mel``, the encoder's and the
+        decode loops' spans, and each rung's ``whisper.readback`` and
+        ``whisper.select`` (the host's pass over the rung's tokens).
         """
-        tok = self.tokenizer
-        prompt_ids = self._prompt_ids(language, initial_prompt)
-        mel, prompt = self._mel_prompt(audio_16k, prompt_ids)
-        B = prompt.shape[0]
-        ns_id = min(tok.no_speech, self.cfg.n_vocab - 1)
-        # no-speech prob is read at the SOT position (≠ 0 when an
-        # initial_prompt prepends <|startofprev|> context)
-        sot_index = prompt_ids.index(tok.sot) if tok.sot in prompt_ids else 0
-        shards, _ = self._shard_batch(mel, prompt)
-        # encode once: the rungs differ only in sampling temperature
-        encs = [encode(rep, m) for rep, _, m, _ in shards]
-        # a shard draws each step's noise for the whole batch from its own
-        # generator with the rung's seed, and keeps its rows (noise_rows)
-        rows = None if self.mesh is None else B
+        with span("whisper.transcribe"):
+            tok = self.tokenizer
+            prompt_ids = self._prompt_ids(language, initial_prompt)
+            mel, prompt = self._mel_prompt(audio_16k, prompt_ids)
+            B = prompt.shape[0]
+            ns_id = min(tok.no_speech, self.cfg.n_vocab - 1)
+            # no-speech prob is read at the SOT position (≠ 0 when an
+            # initial_prompt prepends <|startofprev|> context)
+            sot_index = prompt_ids.index(tok.sot) if tok.sot in prompt_ids else 0
+            shards, _ = self._shard_batch(mel, prompt)
+            # encode once: the rungs differ only in sampling temperature
+            encs = [encode(rep, m) for rep, _, m, _ in shards]
+            # a shard draws each step's noise for the whole batch from its own
+            # generator with the rung's seed, and keeps its rows (noise_rows)
+            rows = None if self.mesh is None else B
 
-        results: List[Optional[str]] = [None] * B
-        for t_i, temp in enumerate(temperatures):
-            outs = []
-            for (rep, start, _, p), enc in zip(shards, encs):
-                gen = torch.Generator(device=self.device).manual_seed(seed + t_i)
-                outs.append(sample_decode(
-                    rep, enc, p, float(temp), gen, ns_id, sot_index, max_new=max_new,
-                    eot=tok.eot, noise_rows=None if rows is None else (start, rows)))
-            tokens, lengths, lp_sum, ns_prob = (t.cpu().numpy() for t in self._gather(outs, B))
-            last = t_i == len(temperatures) - 1
-            for b in range(B):
-                if results[b] is not None:
-                    continue
-                text = tok.decode(tokens[b, : lengths[b]])
-                avg_lp = float(lp_sum[b]) / (int(lengths[b]) + 1)
-                degenerate = compression_ratio(text) > compression_ratio_threshold
-                low_conf = avg_lp < logprob_threshold
-                if (degenerate or low_conf) and not last:
-                    continue  # fall back to the next temperature
-                if float(ns_prob[b]) > no_speech_threshold and low_conf:
-                    text = ""  # confident silence (whisper no-speech gate)
-                results[b] = text
-            if all(r is not None for r in results):
-                break
-        return [r if r is not None else "" for r in results]
+            results: List[Optional[str]] = [None] * B
+            for t_i, temp in enumerate(temperatures):
+                outs = []
+                for (rep, start, _, p), enc in zip(shards, encs):
+                    gen = torch.Generator(device=self.device).manual_seed(seed + t_i)
+                    outs.append(sample_decode(
+                        rep, enc, p, float(temp), gen, ns_id, sot_index, max_new=max_new,
+                        eot=tok.eot, noise_rows=None if rows is None else (start, rows)))
+                with span("whisper.readback"):
+                    tokens, lengths, lp_sum, ns_prob = (t.cpu().numpy() for t in self._gather(outs, B))
+                last = t_i == len(temperatures) - 1
+                with span("whisper.select"):
+                    for b in range(B):
+                        if results[b] is not None:
+                            continue
+                        text = tok.decode(tokens[b, : lengths[b]])
+                        avg_lp = float(lp_sum[b]) / (int(lengths[b]) + 1)
+                        degenerate = compression_ratio(text) > compression_ratio_threshold
+                        low_conf = avg_lp < logprob_threshold
+                        if (degenerate or low_conf) and not last:
+                            continue  # fall back to the next temperature
+                        if float(ns_prob[b]) > no_speech_threshold and low_conf:
+                            text = ""  # confident silence (whisper no-speech gate)
+                        results[b] = text
+                if all(r is not None for r in results):
+                    break
+            return [r if r is not None else "" for r in results]
 
     def transcribe_chunks_with_timestamps(
         self, audio_16k, offsets_seconds: Optional[List[float]] = None,

@@ -12,7 +12,11 @@ The weights live in ``nn.Module``s (``Whisper`` = ``AudioEncoder`` +
 ``TextDecoder``; ``weights.params_to_module`` carries the JAX package's flat
 ``[in, out]`` params into them); the decode loops are plain functions over a
 preallocated KV cache ``[L, B, H, max_len, hd]``. The loops issue no host
-sync per step: every step's token stays on the device.
+sync per step: every step's token stays on the device. While a profiler
+session records, ``encode`` records the span (``utils.tracing``)
+``whisper.encode``, and each of ``greedy_decode`` and ``sample_decode``
+records ``whisper.decode`` around ``whisper.init_cache``,
+``whisper.prefill`` and one ``whisper.step`` a cached step.
 
 Numerics follow the JAX package: q and k each scaled by hd^-0.25, exact
 GELU, LayerNorm with the biased variance and eps 1e-5, symmetric padding 1
@@ -33,6 +37,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ...utils.tracing import span
 
 
 @dataclass(frozen=True)
@@ -311,7 +317,8 @@ class Whisper(nn.Module):
 @torch.no_grad()
 def encode(model: Whisper, mel: torch.Tensor) -> torch.Tensor:
     """mel [B, n_mels, 3000] → audio features [B, 1500, d]."""
-    return model.encoder(mel)
+    with span("whisper.encode"):
+        return model.encoder(mel)
 
 
 @torch.no_grad()
@@ -461,25 +468,29 @@ def greedy_decode(
     [B]). Runs max_new − 1 cached steps with EOS freezing: finished rows
     keep emitting eot.
     """
-    cfg = model.cfg
-    audio = _audio(model, mel_or_audio)
-    P = prompt.shape[1]
-    eot_id = cfg.eot if eot is None else eot
-    max_new = _clamp_max_new(cfg, P, max_new)
-    max_len = P + max_new
-    self_k, self_v, cross_k, cross_v = _init_cache(model, audio, max_len)
-    logits_all, self_k, self_v = _prefill(model, prompt, self_k, self_v, cross_k, cross_v)
-    tok = logits_all[:, -1].argmax(-1)
-    done = tok == eot_id
-    toks = [tok]
-    for i in range(max_new - 1):
-        logits, self_k, self_v = _decode_step(
-            model, tok, P + i, self_k, self_v, cross_k, cross_v, max_len)
-        tok = torch.where(done, eot_id, logits.argmax(-1))
-        done = done | (tok == eot_id)
-        toks.append(tok)
-    tokens = torch.stack(toks, dim=1)
-    return tokens, _lengths(tokens, eot_id, max_new)
+    with span("whisper.decode"):
+        cfg = model.cfg
+        audio = _audio(model, mel_or_audio)
+        P = prompt.shape[1]
+        eot_id = cfg.eot if eot is None else eot
+        max_new = _clamp_max_new(cfg, P, max_new)
+        max_len = P + max_new
+        with span("whisper.init_cache"):
+            self_k, self_v, cross_k, cross_v = _init_cache(model, audio, max_len)
+        with span("whisper.prefill"):
+            logits_all, self_k, self_v = _prefill(model, prompt, self_k, self_v, cross_k, cross_v)
+        tok = logits_all[:, -1].argmax(-1)
+        done = tok == eot_id
+        toks = [tok]
+        for i in range(max_new - 1):
+            with span("whisper.step"):
+                logits, self_k, self_v = _decode_step(
+                    model, tok, P + i, self_k, self_v, cross_k, cross_v, max_len)
+                tok = torch.where(done, eot_id, logits.argmax(-1))
+                done = done | (tok == eot_id)
+                toks.append(tok)
+        tokens = torch.stack(toks, dim=1)
+        return tokens, _lengths(tokens, eot_id, max_new)
 
 
 @torch.no_grad()
@@ -512,38 +523,42 @@ def sample_decode(
     is not position 0 when an initial_prompt prepends <|startofprev|>
     context).
     """
-    cfg = model.cfg
-    audio = _audio(model, mel_or_audio)
-    P = prompt.shape[1]
-    eot_id = cfg.eot if eot is None else eot
-    max_new = _clamp_max_new(cfg, P, max_new)
-    max_len = P + max_new
-    self_k, self_v, cross_k, cross_v = _init_cache(model, audio, max_len)
-    logits_all, self_k, self_v = _prefill(model, prompt, self_k, self_v, cross_k, cross_v)
-    no_speech_prob = torch.softmax(logits_all[:, sot_index], dim=-1)[:, no_speech_id]
+    with span("whisper.decode"):
+        cfg = model.cfg
+        audio = _audio(model, mel_or_audio)
+        P = prompt.shape[1]
+        eot_id = cfg.eot if eot is None else eot
+        max_new = _clamp_max_new(cfg, P, max_new)
+        max_len = P + max_new
+        with span("whisper.init_cache"):
+            self_k, self_v, cross_k, cross_v = _init_cache(model, audio, max_len)
+        with span("whisper.prefill"):
+            logits_all, self_k, self_v = _prefill(model, prompt, self_k, self_v, cross_k, cross_v)
+        no_speech_prob = torch.softmax(logits_all[:, sot_index], dim=-1)[:, no_speech_id]
 
-    def pick(logits):
-        if temperature > 0:
-            gumbel = -torch.log(_exponential(logits, generator, noise_rows))
-            tok = (logits / temperature + gumbel).argmax(-1)
-        else:
-            tok = logits.argmax(-1)
-        lp = torch.log_softmax(logits, dim=-1).gather(-1, tok[:, None])[:, 0]
-        return tok, lp
+        def pick(logits):
+            if temperature > 0:
+                gumbel = -torch.log(_exponential(logits, generator, noise_rows))
+                tok = (logits / temperature + gumbel).argmax(-1)
+            else:
+                tok = logits.argmax(-1)
+            lp = torch.log_softmax(logits, dim=-1).gather(-1, tok[:, None])[:, 0]
+            return tok, lp
 
-    tok, lp_sum = pick(logits_all[:, -1])
-    done = tok == eot_id
-    toks = [tok]
-    for i in range(max_new - 1):
-        logits, self_k, self_v = _decode_step(
-            model, tok, P + i, self_k, self_v, cross_k, cross_v, max_len)
-        nxt, lp = pick(logits)
-        lp_sum = lp_sum + torch.where(done, 0.0, lp)  # frozen rows stop scoring
-        tok = torch.where(done, eot_id, nxt)
-        done = done | (tok == eot_id)
-        toks.append(tok)
-    tokens = torch.stack(toks, dim=1)
-    return tokens, _lengths(tokens, eot_id, max_new), lp_sum, no_speech_prob
+        tok, lp_sum = pick(logits_all[:, -1])
+        done = tok == eot_id
+        toks = [tok]
+        for i in range(max_new - 1):
+            with span("whisper.step"):
+                logits, self_k, self_v = _decode_step(
+                    model, tok, P + i, self_k, self_v, cross_k, cross_v, max_len)
+                nxt, lp = pick(logits)
+                lp_sum = lp_sum + torch.where(done, 0.0, lp)  # frozen rows stop scoring
+                tok = torch.where(done, eot_id, nxt)
+                done = done | (tok == eot_id)
+                toks.append(tok)
+        tokens = torch.stack(toks, dim=1)
+        return tokens, _lengths(tokens, eot_id, max_new), lp_sum, no_speech_prob
 
 
 def _exponential(logits: torch.Tensor, generator, noise_rows) -> torch.Tensor:

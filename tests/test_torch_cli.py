@@ -21,7 +21,8 @@ from crispy_tpu_torch.api.events import EventBus
 from crispy_tpu_torch.io import wav as wavio
 from crispy_tpu_torch.models import registry as reg
 from crispy_tpu_torch.utils import paths, updater
-from crispy_tpu_torch.utils.tracing import Timings, device_trace, stage
+from crispy_tpu_torch.utils import tracing
+from crispy_tpu_torch.utils.tracing import stage
 
 
 def both(capsys, argv, port_extra=()):
@@ -189,21 +190,22 @@ def test_transcribe_falls_back_to_the_selected_model(capsys, data_root, tmp_path
 
 
 def test_stage_timing_events():
+    """``stage`` emits its ``stage-timing`` event (what the web UI reads)
+    with or without a profiler session, and records a span only inside
+    one, carrying the event's extra fields."""
     bus = EventBus()
-    t = Timings(bus)
+    bus.keep_history = True
+    seen = {s.id for s in tracing.spans()}
     with stage("unit", bus, {"n": 3}):
         pass
-    with stage("unit", bus):
-        pass
-    assert t.counts["unit"] == 2 and t.totals["unit"] >= 0
-    assert "unit" in t.report() and "2 call(s)" in t.report()
-    t.close()
-    with stage("after-close", bus):
-        pass
-    assert "after-close" not in t.counts
-
-
-def test_device_trace_writes_a_trace(tmp_path):
-    with device_trace(str(tmp_path / "trace")):
-        torch.ones(8).cumsum(0)
-    assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with stage("unit", bus):
+            with stage("inner", bus, {"chunks": 2}):
+                pass
+    events = [p for e, p in bus.history if e == "stage-timing"]
+    assert [p["stage"] for p in events] == ["unit", "inner", "unit"]
+    assert events[0]["n"] == 3 and events[1]["chunks"] == 2
+    assert all(p["seconds"] >= 0 for p in events)
+    new = [s for s in tracing.spans() if s.id not in seen]
+    assert [(s.name, s.attrs) for s in new] == [("inner", {"chunks": 2}), ("unit", {})]
+    assert new[0].parent == new[1].id and new[1].parent is None
