@@ -35,6 +35,7 @@ throughout (TF32 is off, see ``device.py``).
 
 from __future__ import annotations
 
+import mmap
 import os
 from typing import Dict, Optional
 
@@ -691,11 +692,21 @@ def denoise_batch(
     io.wav.write_wav's. Not available with a mesh (the JAX package's sharded
     step keeps the f32 surface).
 
+    The samples cross host memory once each way. On a card each block's
+    rows are copied (torch's threaded copy) into pinned memory and uploaded
+    without blocking, and each result is read back into pinned memory behind
+    a CUDA event; once the next block is queued, the host waits on that
+    event and copies the result into the output, while the card computes.
+    On the CPU the same loop runs with plain buffers and no events. The
+    output is a new array that never aliases the input.
+
     While a profiler session records, the call records the spans
-    (``utils.tracing``) ``denoise_batch`` around it and, for each block and
-    shard, ``denoise.slice``, ``denoise.upload``, ``denoise.step`` and
-    ``denoise.readback``; each flush is ``denoise.flush`` with
-    ``denoise.flush.wait`` and ``denoise.flush.concat``.
+    (``utils.tracing``) ``denoise_batch`` around it, ``denoise.alloc`` (the
+    output's allocation and its tail) and, for each block and shard,
+    ``denoise.slice`` (the copy into the staging buffer),
+    ``denoise.upload`` (``staged=True`` on the pinned route),
+    ``denoise.step``, ``denoise.readback`` and ``denoise.flush`` (the
+    write-back) with ``denoise.flush.wait`` and ``denoise.flush.concat``.
     """
     if mesh is not None:
         check_device(mesh, device)
@@ -725,24 +736,35 @@ def denoise_batch(
         if params is None:
             params = make_params(model, dev)
         n_frames = T // FRAME
-        out = np.array(a, copy=True)
-        vads = []
-        # shard i: streams [i*b, (i+1)*b) of the zero-padded batch on devs[i];
-        # one copy of the params per distinct device (.to is a no-op where
-        # they already lie, so repeated entries share them)
+        end = n_frames * FRAME
+        # Only the tail that fills no frame is copied here; every frame is
+        # written once, block by block, from the results.
+        with span("denoise.alloc"):
+            out = _new_host_array(a)
+            out[:, end:] = a[:, end:]
+        vad = np.empty((S, n_frames), np.float32) if return_vad else None
+        src, dst = _host_tensor(a), torch.from_numpy(out)
+        vad_dst = torch.from_numpy(vad) if return_vad else None
+        # shard i: streams [i*b, (i+1)*b) of the zero-padded batch on devs[i],
+        # of which the first n lie below S; one copy of the params per distinct
+        # device (.to is a no-op where they already lie, so repeated entries
+        # share them)
         b = -(-S // len(devs))
-        if b * len(devs) != S:
-            a = np.pad(a, ((0, b * len(devs) - S), (0, 0)))
         copies = {d: {k: v.to(d) for k, v in params.items()} for d in dict.fromkeys(devs)}
-        shards = [(slice(i * b, (i + 1) * b), d, copies[d], init_state(b, d))
-                  for i, d in enumerate(devs)]
-        states = [sh[3] for sh in shards]
+        shards = [(i * b, min(b, max(S - i * b, 0)), d, copies[d]) for i, d in enumerate(devs)]
+        states = [init_state(b, d) for d in devs]
         blk = block_frames * FRAME
-        # Results copy back without blocking the host, so the next blocks are
-        # queued while earlier ones compute; the host waits once per flush.
-        pending: list = []  # (sample offset, length, out blocks, vad blocks)
-        pending_bytes = 0
-        flush_bytes = 512 << 20  # bound the device- and pinned-host-resident output
+
+        def stage(r0: int, n: int, off: int, todo: int, d: torch.device) -> torch.Tensor:
+            # Pinned on the card's route: torch's caching host allocator hands
+            # a buffer out again only once the copy that read it has finished.
+            pin = d.type == "cuda"
+            with span("denoise.slice"):
+                h = torch.empty((b, todo), dtype=src.dtype, pin_memory=pin)
+                h[:n].copy_(src[r0: r0 + n, off: off + todo])
+                h[n:].zero_()
+            with span("denoise.upload", staged=pin):
+                return h.to(d, non_blocking=pin)
 
         def to_host(t: torch.Tensor) -> torch.Tensor:
             if t.device.type != "cuda":
@@ -751,43 +773,62 @@ def denoise_batch(
             h.copy_(t, non_blocking=True)
             return h
 
-        def flush():
-            nonlocal pending_bytes
-            with span("denoise.flush"):
-                with span("denoise.flush.wait"):
-                    for d in dict.fromkeys(devs):
-                        if d.type == "cuda":
-                            torch.cuda.synchronize(d)
-                with span("denoise.flush.concat"):
-                    for off, td, outs, vs in pending:
-                        out[:, off: off + td] = np.concatenate([o.numpy() for o in outs])[:S]
+        def write_back(blocks: list) -> None:
+            for r0, n, off, o, v, ready in blocks:
+                with span("denoise.flush"):
+                    with span("denoise.flush.wait"):
+                        if ready is not None:
+                            ready.synchronize()
+                    with span("denoise.flush.concat"):
+                        dst[r0: r0 + n, off: off + o.shape[1]].copy_(o[:n])
                         if return_vad:
-                            vads.append(np.concatenate([v.numpy() for v in vs])[:S])
-            pending.clear()
-            pending_bytes = 0
+                            f0 = off // FRAME
+                            vad_dst[r0: r0 + n, f0: f0 + v.shape[1]].copy_(v[:n])
 
+        behind: list = []  # the previous block's results: (row, rows, offset, out, vad, event)
         done = 0
         with torch.no_grad():
-            while done < n_frames * FRAME:
-                todo = min(blk, n_frames * FRAME - done)
-                outs, vs = [], []
-                for i, (rows, d, p, _) in enumerate(shards):
-                    with span("denoise.slice"):
-                        piece = np.ascontiguousarray(a[rows, done: done + todo])
-                    with span("denoise.upload"):
-                        chunk = torch.from_numpy(piece).to(d)
+            while done < end:
+                todo = min(blk, end - done)
+                queued = []
+                for i, (r0, n, d, p) in enumerate(shards):
+                    chunk = stage(r0, n, done, todo, d)
                     with span("denoise.step"):
                         states[i], o, v = step(p, states[i], chunk)
                     with span("denoise.readback"):
-                        outs.append(to_host(o))
-                        vs.append(to_host(v) if return_vad else None)
-                    pending_bytes += o.numel() * o.element_size()
-                pending.append((done, todo, outs, vs))
-                if pending_bytes >= flush_bytes:
-                    flush()
+                        o, v = to_host(o), (to_host(v) if return_vad else None)
+                        ready = None
+                        if d.type == "cuda":
+                            ready = torch.cuda.Event()
+                            ready.record(torch.cuda.current_stream(d))
+                    queued.append((r0, n, done, o, v, ready))
+                # block n is queued: write back block n-1 while the card runs it
+                write_back(behind)
+                behind = queued
                 done += todo
-            flush()
+            write_back(behind)
     if return_vad:
-        v = np.concatenate(vads, axis=1) if vads else np.zeros((S, 0), np.float32)
-        return (out[0] if squeeze else out), (v[0] if squeeze else v)
+        return (out[0] if squeeze else out), (vad[0] if squeeze else vad)
     return out[0] if squeeze else out
+
+
+def _new_host_array(like: np.ndarray) -> np.ndarray:
+    """An uninitialised array shaped and ordered like ``like``, on anonymous
+    memory whose pages the kernel makes present in one call
+    (``MAP_POPULATE``, where the platform has it). Written one first touch
+    at a time, each 4 KiB page of a fresh array costs a fault: on the H100's
+    host that was two thirds of the time to write a call's results."""
+    order = "F" if like.flags.f_contiguous and not like.flags.c_contiguous else "C"
+    if like.nbytes == 0 or not hasattr(mmap, "MAP_POPULATE"):
+        return np.empty_like(like, order=order)
+    buf = mmap.mmap(-1, like.nbytes, flags=mmap.MAP_PRIVATE | mmap.MAP_ANONYMOUS | mmap.MAP_POPULATE)
+    return np.ndarray(like.shape, like.dtype, buffer=buf, order=order)
+
+
+def _host_tensor(a: np.ndarray) -> torch.Tensor:
+    """A CPU tensor over ``a``'s memory, for torch's threaded copies. An
+    array torch cannot view without a warning or an error (read-only, or
+    with a negative stride) is copied first."""
+    if not a.flags.writeable or min(a.strides, default=0) < 0:
+        a = a.copy()
+    return torch.from_numpy(a)

@@ -132,8 +132,11 @@ def params():
 def test_denoise_batch_spans(params, monkeypatch, wire):
     """S=3, blocks of 4 frames over 10 frames and a partial frame: two full
     blocks and a short one. One ``denoise.step`` a block, the phases beside
-    it, every span inside the root, and the same samples as a run outside a
-    session; the block step is still looked up where the benchmark swaps it."""
+    it (a write-back ``denoise.flush`` a block too, one ``denoise.alloc`` a
+    call), every span inside the
+    root, the CPU route's uploads unstaged, and the same samples as a run
+    outside a session; the block step is still looked up where the benchmark
+    swaps it."""
     n = 10 * FRAME + 123
     audio = np.stack([speechlike(n, seed=s, f0=f) for s, f in ((1, 110.0), (2, 180.0), (3, 95.0))])
     x = (audio * 32767).astype(np.int16) if wire == "i16" else audio
@@ -149,9 +152,10 @@ def test_denoise_batch_spans(params, monkeypatch, wire):
     got, spans = recorded(run)
     np.testing.assert_array_equal(got, plain)
     count = {k: names(spans).count(k) for k in set(names(spans))}
-    assert count == {"denoise_batch": 1, "denoise.slice": 3, "denoise.upload": 3,
-                     "denoise.step": 3, "denoise.readback": 3, "denoise.flush": 1,
-                     "denoise.flush.wait": 1, "denoise.flush.concat": 1}
+    assert count == {"denoise_batch": 1, "denoise.alloc": 1, "denoise.slice": 3, "denoise.upload": 3,
+                     "denoise.step": 3, "denoise.readback": 3, "denoise.flush": 3,
+                     "denoise.flush.wait": 3, "denoise.flush.concat": 3}
+    assert [s.attrs for s in spans if s.name == "denoise.upload"] == [{"staged": False}] * 3
     assert len(calls) == 2 * 3  # both runs went through the swapped name
     root = next(s for s in spans if s.name == "denoise_batch")
     by_id = {s.id: s for s in spans}
