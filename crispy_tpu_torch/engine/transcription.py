@@ -40,7 +40,7 @@ from ..parallel import check_device
 from ..io import wav as wavio
 from ..models.registry import ModelManager
 from ..utils import paths
-from ..utils.tracing import stage
+from ..utils.tracing import span, stage
 
 TARGET_SAMPLE_RATE = 16000  # commands/transcription.rs:173
 TRANSCRIBE_CHUNK_SECONDS = 30  # :175
@@ -415,7 +415,8 @@ def _gigaam_engine(model_id, path, raw, params, dev) -> EngineProtocol:
 
 
 def _canary_engine(model_id, path, raw, params, dev) -> EngineProtocol:
-    from ..dsp.asr_frontend import nemo_log_mel
+    """The prepared canary bundle: ``config.json`` names a ``CONFIGS`` entry
+    (or gives the widths) and the prompt ids, ``params.npz`` the weights."""
     from ..models import canary as cn
     from ..models import parakeet as pk
     from ..models.spm import SentencePieceVocab
@@ -426,38 +427,50 @@ def _canary_engine(model_id, path, raw, params, dev) -> EngineProtocol:
         cfg = cn.CONFIGS[raw["config"]]
     else:
         cfg = cn.CanaryConfig(encoder=pk.ParakeetConfig(**raw.pop("encoder", {})), **raw)
-    if prompt_ids is None:
-        prompt_ids = [cfg.bos]
-    net = cn.params_to_module(params, cfg, dev)
-    vocab = SentencePieceVocab.load(path / "tokenizer.model")
-    pieces = list(vocab.pieces)
+    return CanaryEngine(model_id, cn.params_to_module(params, cfg, dev),
+                        SentencePieceVocab.load(path / "tokenizer.model"),
+                        [cfg.bos] if prompt_ids is None else prompt_ids, dev)
 
-    def _prompt_for_language(language: str):
+
+class CanaryEngine(EngineProtocol):
+    """Canary over a built ``models.canary.Canary`` module: NeMo log-mel
+    features, ``canary.greedy_decode`` from the prompt, the tokens read back
+    and detokenised with the bundle's SentencePiece vocabulary. While a
+    profiler session records, a call records the span ``canary.transcribe``
+    around ``canary.mel`` (the upload, the features and the prompt), the
+    model's spans, ``canary.readback`` and ``canary.detok``."""
+
+    def __init__(self, name: str, model, vocab, prompt_ids: List[int], device):
+        self.name = name
+        self.model = model
+        self.vocab = vocab
+        self.prompt_ids = list(prompt_ids)
+        self.device = torch.device(device)
+
+    def prompt_for_language(self, language: str) -> List[int]:
         """Swap <|lang|> slots in the canary prompt when the vocab has the
         requested language token (the ONNX enc-dec engine's contract)."""
-        if language == "en" or f"<|{language}|>" not in pieces:
-            return prompt_ids
-        en, lang = (pieces.index("<|en|>") if "<|en|>" in pieces else -1,
-                    pieces.index(f"<|{language}|>"))
-        if en < 0:
-            return prompt_ids
-        return [lang if t == en else t for t in prompt_ids]
+        pieces = self.vocab.pieces
+        if language == "en" or f"<|{language}|>" not in pieces or "<|en|>" not in pieces:
+            return self.prompt_ids
+        en, lang = pieces.index("<|en|>"), pieces.index(f"<|{language}|>")
+        return [lang if t == en else t for t in self.prompt_ids]
 
-    class _CanaryEngine(EngineProtocol):
-        name = model_id
-        model = net
-        prompt_for_language = staticmethod(_prompt_for_language)
+    def transcribe_batch(self, chunks, language="en"):
+        from ..dsp.asr_frontend import nemo_log_mel
+        from ..models import canary as cn
 
-        def transcribe_batch(self, chunks, language="en"):
-            a = _on_device(chunks, dev)
-            feats = nemo_log_mel(a, cfg.encoder.n_mels).transpose(1, 2)
-            prompt = torch.tensor(self.prompt_for_language(language), dtype=torch.long,
-                                  device=dev).expand(a.shape[0], -1)
-            tokens, lengths = cn.greedy_decode(net, feats, prompt=prompt)
-            tokens, lengths = tokens.cpu().numpy(), lengths.cpu().numpy()
-            return [vocab.decode(row[:n]) for row, n in zip(tokens, lengths)]
-
-    return _CanaryEngine()
+        with span("canary.transcribe"):
+            with span("canary.mel"):
+                a = _on_device(chunks, self.device)
+                feats = nemo_log_mel(a, self.model.cfg.encoder.n_mels).transpose(1, 2)
+                prompt = torch.tensor(self.prompt_for_language(language), dtype=torch.long,
+                                      device=self.device).expand(a.shape[0], -1)
+            tokens, lengths = cn.greedy_decode(self.model, feats, prompt=prompt)
+            with span("canary.readback"):
+                tokens, lengths = tokens.cpu().numpy(), lengths.cpu().numpy()
+            with span("canary.detok"):
+                return [self.vocab.decode(row[:n]) for row, n in zip(tokens, lengths)]
 
 
 def _sensevoice_engine(model_id, path, raw, params, dev) -> EngineProtocol:

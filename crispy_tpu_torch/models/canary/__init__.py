@@ -9,11 +9,19 @@ and cross-attention, prompted with task/language tokens and decoded
 greedily over an f32 KV cache.
 
 The weights live in a ``Canary`` module (``params_to_module``); the decode
-loop is a plain function that issues no host sync per step.
+loop is a plain function that issues no host sync per step. Each decoder
+step runs through a ``DecodeStep``: on the card one replay of a CUDA graph
+of the whole step, captured once a decode, elsewhere the step eagerly.
+While a profiler session records, ``encode`` records the span
+``canary.encode`` and ``greedy_decode`` records ``canary.decode`` around
+``canary.init_cache`` (the cross keys and values, the empty self cache and
+the step's capture), ``canary.prefill`` (the prompt, one token at a time)
+and one ``canary.step`` a cached step.
 """
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import Dict, Optional
 
@@ -22,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...utils.tracing import span
 from ..carry import load_params, module_name
 from ..parakeet import Parakeet, ParakeetConfig
 from ..parakeet import init_random as conformer_init
@@ -46,6 +55,16 @@ CONFIGS = {
         encoder=ParakeetConfig(hidden_size=512, layers=17, heads=8,
                                intermediate_size=2048, vocab_size=5248),
         vocab_size=5248, dec_layers=4, dec_heads=8, dec_hidden=512, dec_ffn=2048),
+    # arXiv:2509.14128 and the model card: a 32-layer FastConformer at 1024
+    # over 128 mels, an 8-layer decoder at 1024 over 16,384 SentencePiece
+    # tokens; the special-token ids (<|endoftext|> 3, <|startoftranscript|> 4)
+    # and max_len are assumed
+    "canary-1b-v2": CanaryConfig(
+        encoder=ParakeetConfig(n_mels=128, hidden_size=1024, layers=32, heads=8, kv_heads=8,
+                               intermediate_size=4096, conv_kernel=9, sub_channels=256,
+                               sub_factor=8, vocab_size=16384),
+        vocab_size=16384, dec_layers=8, dec_heads=8, dec_hidden=1024, dec_ffn=4096,
+        max_len=1024, bos=4, eos=3),
     "test-random": CanaryConfig(
         encoder=ParakeetConfig(hidden_size=64, layers=2, heads=2, kv_heads=2,
                                intermediate_size=128, sub_channels=32, vocab_size=64),
@@ -148,10 +167,11 @@ def params_to_module(params: Dict[str, np.ndarray], cfg: CanaryConfig, device=No
 @torch.no_grad()
 def encode(model: Canary, mel: torch.Tensor) -> torch.Tensor:
     """mel [B, T, n_mels] → [B, T/8, dec_hidden]."""
-    feats = model.encoder(mel)
-    if hasattr(model, "enc_proj"):
-        feats = model.enc_proj(feats)
-    return feats
+    with span("canary.encode"):
+        feats = model.encoder(mel)
+        if hasattr(model, "enc_proj"):
+            feats = model.enc_proj(feats)
+        return feats
 
 
 @torch.no_grad()
@@ -171,17 +191,20 @@ def decode_logits(model: Canary, tokens: torch.Tensor, feats: torch.Tensor) -> t
     return dec.logits(x)
 
 
-def _decode_step(model: Canary, tok, pos: int, self_k, self_v, cross_k, cross_v, max_len: int):
-    """One cached decoder step. tok [B], pos a Python int → logits [B, V];
-    the step's K/V are written into the caches in place."""
+def _decode_step(model: Canary, tok, pos, self_k, self_v, cross_k, cross_v):
+    """One cached decoder step. tok [B], pos a 0-d long tensor on tok's
+    device → logits [B, V]; the step's K/V are written into the caches at
+    pos. It reads pos only on the device, so a CUDA graph can hold it."""
     dec = model.dec
-    x = dec.embed(tok[:, None], pos)
+    max_len = self_k.shape[3]
+    at = pos.view(1)
+    x = dec.emb[tok[:, None]] * float(np.sqrt(dec.emb.shape[1])) + dec.pos.index_select(0, at)
     pos_mask = torch.arange(max_len, device=x.device) <= pos
     for i, lyr in enumerate(dec.layers):
         a, c = lyr.attn, lyr.cross
         h = lyr.ln1(x)
-        self_k[i, :, :, pos] = a.heads(a.k(h))[:, :, 0]
-        self_v[i, :, :, pos] = a.heads(a.v(h))[:, :, 0]
+        self_k[i].index_copy_(2, at, a.heads(a.k(h)))
+        self_v[i].index_copy_(2, at, a.heads(a.v(h)))
         q = a.heads(a.q(h))
         logits = torch.matmul(q, self_k[i].transpose(-1, -2)) * q.shape[-1] ** -0.5
         logits = torch.where(pos_mask, logits, -1e30)
@@ -189,6 +212,57 @@ def _decode_step(model: Canary, tok, pos: int, self_k, self_v, cross_k, cross_v,
         x = x + c.o(_merge(_attn(c.heads(c.q(lyr.lnx(x))), cross_k[i], cross_v[i])))
         x = x + lyr.mlp(x)
     return dec.logits(x)[:, 0]
+
+
+# (device, thread) -> the side stream that thread captures decode steps on:
+# one stream each, since cuBLAS keeps a workspace for every stream it runs
+# on and a stream is captured by one thread at a time
+_CAPTURE_STREAMS: Dict[tuple, "torch.cuda.Stream"] = {}
+
+
+class DecodeStep:
+    """The cached steps of one decode over its caches: ``step(tok, pos)``
+    writes tok [B] and the Python int pos into static inputs and returns the
+    step's logits [B, V]. On the card the step is a CUDA graph, captured here
+    on the thread's side stream after one eager warm-up step at the first
+    token and position (which the first call repeats, writing the same
+    K/V), and each call replays it: one launch for the step's ~230 kernels,
+    and the logits are the graph's output buffer, which the next call
+    overwrites. Elsewhere each call runs ``_decode_step``."""
+
+    def __init__(self, model: Canary, self_k, self_v, cross_k, cross_v, tok):
+        self.tok = tok.clone()
+        self.pos = torch.zeros((), dtype=torch.long, device=tok.device)
+        self.args = (model, self.tok, self.pos, self_k, self_v, cross_k, cross_v)
+        self.graph = None
+        if tok.device.type == "cuda":
+            self._capture()
+
+    def _capture(self) -> None:
+        dev = self.tok.device
+        key = (dev, threading.get_ident())
+        s = _CAPTURE_STREAMS.get(key)
+        if s is None:
+            s = _CAPTURE_STREAMS[key] = torch.cuda.Stream(dev)
+        s.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(s):
+            _decode_step(*self.args)
+            graph = torch.cuda.CUDAGraph()
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self.logits = _decode_step(*self.args)
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(s)
+        self.graph = graph
+
+    def __call__(self, tok, pos: int) -> torch.Tensor:
+        self.tok.copy_(tok)
+        self.pos.fill_(pos)
+        if self.graph is None:
+            return _decode_step(*self.args)
+        self.graph.replay()
+        return self.logits
 
 
 @torch.no_grad()
@@ -201,31 +275,35 @@ def greedy_decode(model: Canary, mel: torch.Tensor, max_new: int = 128,
     [B, max_new], lengths [B])."""
     cfg = model.cfg
     feats = encode(model, mel)
-    B = feats.shape[0]
-    H = cfg.dec_heads
-    hd = cfg.dec_hidden // H
-    if prompt is None:
-        prompt = torch.full((B, 1), cfg.bos, dtype=torch.long, device=feats.device)
-    P = prompt.shape[1]
-    max_len = P + max_new
-    self_k = feats.new_zeros((cfg.dec_layers, B, H, max_len, hd))
-    self_v = torch.zeros_like(self_k)
-    layers = model.dec.layers
-    cross_k = torch.stack([lyr.cross.heads(lyr.cross.k(feats)) for lyr in layers])
-    cross_v = torch.stack([lyr.cross.heads(lyr.cross.v(feats)) for lyr in layers])
-    for p_i in range(P):  # prefill (P is small)
-        logits = _decode_step(model, prompt[:, p_i], p_i, self_k, self_v, cross_k, cross_v,
-                              max_len)
-    tok = logits.argmax(-1)
-    done = tok == cfg.eos
-    toks = [tok]
-    for i in range(max_new - 1):
-        logits = _decode_step(model, tok, P + i, self_k, self_v, cross_k, cross_v, max_len)
-        tok = torch.where(done, cfg.eos, logits.argmax(-1))
-        done = done | (tok == cfg.eos)
-        toks.append(tok)
-    tokens = torch.stack(toks, dim=1)
-    return tokens, _lengths(tokens, cfg.eos, max_new)
+    with span("canary.decode"):
+        B = feats.shape[0]
+        H = cfg.dec_heads
+        hd = cfg.dec_hidden // H
+        if prompt is None:
+            prompt = torch.full((B, 1), cfg.bos, dtype=torch.long, device=feats.device)
+        P = prompt.shape[1]
+        max_len = P + max_new
+        with span("canary.init_cache"):
+            self_k = feats.new_zeros((cfg.dec_layers, B, H, max_len, hd))
+            self_v = torch.zeros_like(self_k)
+            layers = model.dec.layers
+            cross_k = torch.stack([lyr.cross.heads(lyr.cross.k(feats)) for lyr in layers])
+            cross_v = torch.stack([lyr.cross.heads(lyr.cross.v(feats)) for lyr in layers])
+            step = DecodeStep(model, self_k, self_v, cross_k, cross_v, prompt[:, 0])
+        with span("canary.prefill"):
+            for p_i in range(P):  # one token at a time (P is small)
+                logits = step(prompt[:, p_i], p_i)
+            tok = logits.argmax(-1)
+            done = tok == cfg.eos
+        toks = [tok]
+        for i in range(max_new - 1):
+            with span("canary.step"):
+                logits = step(tok, P + i)
+                tok = torch.where(done, cfg.eos, logits.argmax(-1))
+                done = done | (tok == cfg.eos)
+                toks.append(tok)
+        tokens = torch.stack(toks, dim=1)
+        return tokens, _lengths(tokens, cfg.eos, max_new)
 
 
 def init_random(cfg: CanaryConfig, seed: int = 0) -> Dict[str, np.ndarray]:
